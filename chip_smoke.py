@@ -1,0 +1,340 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the shapes of the
+production recording path (65,536 frames of 16 chirps × 64 samples, STFT
+nfft 256), times both, runs ``RadarPipeline.process_recording`` on a
+65,536-frame synthetic recording with launch counters reset just before,
+checks the detections against the injected targets, serves three requests
+through ``RadarService``, and prints a kernel table and a device line as
+JSON. Any failed check raises, so the exit code is non-zero. There is no
+CPU path: without a CUDA device it exits at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+FRAMES = 65_536
+SEED = 20261016
+MUTED_SHARE = 0.10
+REPS = 11
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
+    """Median CUDA-event milliseconds of two callables, run in turns after
+    a warmup of each."""
+    for fn in (kernel, plain):
+        fn()
+    torch.cuda.synchronize()
+    times: dict[str, list[float]] = {"kernel": [], "plain": []}
+    for _ in range(reps):
+        for name, fn in (("kernel", kernel), ("plain", plain)):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times[name].append(start.elapsed_time(stop))
+    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+    return torch.exp2(e - 7)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
+              "card", file=sys.stderr)
+        return 2
+
+    from fmcw_radar_processing_tpu_torch import (
+        AlgorithmConfig,
+        LocalStorage,
+        RadarConfig,
+        SyntheticTarget,
+        default_device_config,
+        synthesize_recording,
+        write_recording,
+    )
+    from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator
+    from fmcw_radar_processing_tpu_torch.ops import _lib
+    from fmcw_radar_processing_tpu_torch.ops import fast_time_cuda as ftc
+    from fmcw_radar_processing_tpu_torch.ops import stft_cuda as stc
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+    from fmcw_radar_processing_tpu_torch.serve.handler import (
+        HandlerConfig,
+        RadarService,
+    )
+    from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul, to_pair
+    from fmcw_radar_processing_tpu_torch.utils.observe import StageTimer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # 1. The card, the versions, the precision flags.
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    pin_f32_matmul()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 off")
+
+    # 2. Build the kernels from csrc/.
+    t0 = time.perf_counter()
+    _lib.load_kernels()
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({_lib.library_path().name})")
+
+    # The main path's input: a 65,536-frame recording, two targets, about
+    # 10% of frames muted so that slow-time packing is not the identity.
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    rng = np.random.default_rng(SEED)
+    present = rng.random(FRAMES) >= MUTED_SHARE
+    strong = SyntheticTarget(range_m=7.5, doppler_bin_offset=3, amplitude=4.0)
+    weak = SyntheticTarget(range_m=16.9, doppler_bin_offset=-2, amplitude=2.0)
+    t0 = time.perf_counter()
+    rec = synthesize_recording(cfg, FRAMES, (strong, weak), seed=SEED,
+                               target_present=present)
+    raw = to_pair(rec.rx1()).reshape(FRAMES, cfg.pn, 2 * cfg.nts)
+    calib = to_pair(rec.calib_vector(0, cfg.nts))
+    print(f"[setup] synthesized {FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s; {int(present.sum())} with targets")
+
+    # 3. Kernel parity at the main-path shapes, and 4. timing.
+    rows: list[dict] = []
+
+    # K1 on x [F·PN, 128].
+    w = ftc.blocked_weight(cfg, dev)
+    off = ftc.calib_offset(torch.as_tensor(calib, device=dev), w)
+    x = torch.as_tensor(raw, device=dev).reshape(-1, 2 * cfg.nts)
+    prof = ftc.fast_time_profile(x, w, off, cfg.pn)
+    prof_ref = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+    err = (prof - prof_ref).abs()
+    k1_err = float(err.max())
+    k1_ok = bool((err <= 1e-2 + 1e-5 * prof_ref.abs()).all())
+    print(f"[parity] K1 fast_time_profile {tuple(x.shape)} -> {tuple(prof.shape)}: "
+          f"max_abs_err {k1_err:.6g} (tol 1e-2 + 1e-5·|ref|) "
+          f"{'ok' if k1_ok else 'FAIL'}")
+    check(k1_ok, "K1 parity")
+    ms, plain_ms = time_pair(lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
+                             lambda: ftc.fast_time_profile_ref(x, w, off, cfg.pn))
+    print(f"[time] K1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(median of {REPS})")
+    rows.append(dict(name="fast_time_profile", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
+                     max_abs_err=k1_err, ms=ms, plain_ms=plain_ms))
+    del prof, prof_ref, err
+
+    # K2 + K3 on a packed-signal-shaped input: L = F·PN, about 90% valid.
+    op = StftOperator.create(window_length=20, beta=3.0, nfft=256,
+                             fs=1.0 / cfg.derived.prt)
+    length = FRAMES * cfg.pn
+    count = int(present.sum()) * cfg.pn
+    sig_np = np.zeros(length, np.float32)
+    sig_np[:count] = np.abs(rng.standard_normal(count)
+                            + 4.0 * np.sin(np.arange(count) * 0.3)).astype(np.float32)
+    sig = torch.as_tensor(sig_np, device=dev)
+    nb = op.num_bins
+    t_pad = -(-(length - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    k2_err = 0.0
+    k3_err = 0.0
+    for db_dtype, int_dtype in ((torch.float32, torch.float32),
+                                (torch.bfloat16, torch.bfloat16)):
+        align = 16 if db_dtype == torch.bfloat16 else 8
+        nb_pad = -(-nb // align) * align
+        a2 = torch.as_tensor(stc._folded_operator(op, align), device=dev)
+        p, tmax = stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad)
+        p_ref, tmax_ref = stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad)
+        perr = (p - p_ref).abs()
+        k2_ok = bool((perr <= 1e-10 + 1e-4 * p_ref.abs()).all()) and bool(
+            ((tmax - tmax_ref).abs() <= 1e-5 * tmax_ref.abs()).all())
+        k2_err = max(k2_err, float(perr.max()))
+        print(f"[parity] K2 psd_phase1 L={length} nb_pad={nb_pad}: p max_abs_err "
+              f"{float(perr.max()):.6g} (tol 1e-10 + 1e-4·|ref|; gmax "
+              f"{float(tmax_ref.max()):.6g}) {'ok' if k2_ok else 'FAIL'}")
+        check(k2_ok, "K2 parity")
+        del perr, p_ref
+        gmax = tmax.amax()
+        db, out = stc.db_rescale(p, gmax, nb, 1024, db_dtype, int_dtype)
+        db_ref, out_ref = stc.db_rescale_ref(p, gmax, nb, 1024, db_dtype, int_dtype)
+        floor_ok = bool(torch.equal(db == DB_FLOOR, db_ref == DB_FLOOR))
+        errs = []
+        ok = floor_ok
+        for got, want in ((db, db_ref), (out, out_ref)):
+            d = (got.float() - want.float()).abs()
+            errs.append(float(d.max()))
+            if db_dtype == torch.float32:
+                ok &= bool((d <= 2e-3).all())
+            else:
+                ok &= bool((d <= bf16_ulp(want.float())).all())
+            del d
+        tol = "2e-3 dB" if db_dtype == torch.float32 else "one bf16 ulp"
+        print(f"[parity] K3 db_rescale stores {str(db_dtype)[6:]}: db max_abs_err "
+              f"{errs[0]:.6g}, intensity max_abs_err {errs[1]:.6g} (tol {tol}); "
+              f"floor mask equal {floor_ok} {'ok' if ok else 'FAIL'}")
+        check(ok, f"K3 parity ({db_dtype})")
+        if db_dtype == torch.float32:
+            k3_err = max(errs)
+        del db, out, db_ref, out_ref
+    # Time the production variant (bf16 stores, nb_pad 144).
+    ms2, plain_ms2 = time_pair(
+        lambda: stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad),
+        lambda: stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad))
+    ms3, plain_ms3 = time_pair(
+        lambda: stc.db_rescale(p, gmax, nb, 1024, torch.bfloat16, torch.bfloat16),
+        lambda: stc.db_rescale_ref(p, gmax, nb, 1024, torch.bfloat16,
+                                   torch.bfloat16))
+    print(f"[time] K2 kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms; "
+          f"K3 kernel {ms3:.4f} ms, plain {plain_ms3:.4f} ms (median of {REPS})")
+    rows.append(dict(name="psd_phase1", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:134",
+                     max_abs_err=k2_err, ms=ms2, plain_ms=plain_ms2))
+    rows.append(dict(name="db_rescale", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:282",
+                     max_abs_err=k3_err, ms=ms3, plain_ms=plain_ms3))
+    del p, tmax, sig, x
+    torch.cuda.empty_cache()
+
+    # 5a. A small recording on the card against the port's CPU path (the
+    # plain versions, held to the JAX package and the f64 oracle by the
+    # tests). This also warms cuBLAS and the allocator.
+    small = synthesize_recording(cfg, 256, (strong, weak), seed=SEED + 1,
+                                 target_present=present[:256])
+    s_raw, s_cal = to_pair(small.rx1()), to_pair(small.calib_vector(0, cfg.nts))
+    pipe = RadarPipeline(cfg, device=dev)
+    got = pipe.process_recording(s_raw, s_cal)
+    want = RadarPipeline(cfg, device="cpu").process_recording(s_raw, s_cal)
+    check(np.array_equal(got.detected, want.detected), "small: detected")
+    check(np.array_equal(got.target_range, want.target_range, equal_nan=True),
+          "small: ranges")
+    check(np.array_equal(got.target_speed, want.target_speed, equal_nan=True),
+          "small: speeds")
+    check(np.allclose(got.waterfall, want.waterfall, rtol=1e-5, atol=1e-2),
+          "small: waterfall")
+    for name in ("spectrogram_intensity", "spectrogram_psd_db"):
+        a = torch.as_tensor(getattr(got, name))
+        b = torch.as_tensor(getattr(want, name))
+        check(a.shape == b.shape, f"small: {name} shape")
+        band = b > -120
+        bound = torch.maximum(bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                              torch.tensor(1e-3))
+        check(bool(((a - b).abs() <= bound)[band].all()),
+              f"small: {name} within one bf16 ulp above -120 dB")
+    print("[small] 256-frame recording on cuda matches the CPU plain path")
+
+    # 5. The main path, counted and timed.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    out = pipe.process_recording(raw, calib, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    print(f"[main] process_recording {FRAMES} frames: {seconds:.4f} s = "
+          f"{FRAMES / seconds:,.0f} frames/s end to end (host decode included); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(timer.pretty())
+    print(f"[main] launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on the main path")
+    check(np.array_equal(out.detected, present), "detected frames = target frames")
+    det = out.detected
+    want_range = np.float32(strong.range_bin(cfg)) * np.float32(cfg.derived.dist_per_bin)
+    want_speed = np.float32(strong.doppler_bin_offset) * np.float32(
+        -cfg.derived.fd_per_bin * cfg.derived.hz_to_mps)
+    check(np.all(out.target_range[0, det] == want_range)
+          and np.all(np.isnan(out.target_range[0, ~det])),
+          f"ranges = {want_range}")
+    check(np.all(out.target_speed[0, det] == want_speed), f"speeds = {want_speed}")
+    print(f"[main] range {want_range} m and speed {want_speed} m/s in all "
+          f"{int(det.sum())} detected frames "
+          f"(injected {strong.range_bin(cfg) * cfg.derived.dist_per_bin} m, "
+          f"{strong.reported_speed(cfg)} m/s)")
+    n_valid = int(det.sum()) * cfg.pn - 19
+    inten, psd = out.spectrogram_intensity, out.spectrogram_psd_db
+    check(inten.shape == (1024, n_valid) and psd.shape == (129, n_valid),
+          "spectrogram shapes")
+    check(bool(np.isfinite(inten).all()), "intensity finite")
+    check(float(psd.max()) == 0.0 and bool((psd >= DB_FLOOR).all()),
+          "dB map normalized to 0 dB and floored at DB_FLOOR")
+    floor_cols = (psd == DB_FLOOR).all(axis=0)
+    check(not floor_cols.any(), "no valid column at the floor")
+    print(f"[main] intensity {inten.shape} finite, dB map max 0, "
+          f"{int((psd == DB_FLOOR).sum())} floor values, no floored column")
+    del out, inten, psd
+
+    # 6. The service: three requests on a 256-frame recording.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        blobs, work = os.path.join(tmp, "blobs"), os.path.join(tmp, "work")
+        os.makedirs(work)
+        store = LocalStorage(blobs)
+        xml, bin_ = write_recording(os.path.join(tmp, "radar_data"), small)
+        store.put(xml, "radar_data.xml")
+        store.put(bin_, "radar_data.raw.bin")
+        svc = RadarService(HandlerConfig(profile="production", workdir=work,
+                                         storage_spec=f"local:{blobs}",
+                                         pretty_json=False))
+        for i in range(3):
+            res = svc.main({"processAnimalActivity": "no"})
+            check(res["status"] == "success", f"request {i}: {res}")
+            for name in ("spectrogram_data.json", "radar_data_range_fft_data.json",
+                         "radar_data_range_speed_data.json",
+                         "radar_data_fft_data.json", "spectrogram.png"):
+                check(os.path.exists(os.path.join(work, name)), f"{name} written")
+            with open(os.path.join(work, "radar_data_range_speed_data.json")) as fh:
+                rs = json.load(fh)
+            # (T, F) with T = 1 encodes as a flat row (jsonencode rules).
+            ranges = [v for v in np.ravel(np.array(rs["range"], dtype=object))
+                      if v is not None]
+            check(len(ranges) > 0 and all(v == float(want_range) for v in ranges),
+                  f"request {i}: ranges = {want_range}")
+        print(f"[serve] 3/3 requests succeeded; ranges {float(want_range)} m")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    table = [dict(name=r["name"], route=r["route"], source=r["source"],
+                  replaces=r["replaces"], launches=launches[r["name"]],
+                  max_abs_err=r["max_abs_err"], ms=r["ms"],
+                  plain_ms=r["plain_ms"]) for r in rows]
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``csrc/``) behind
+PyTorch wrappers: K1 ``fast_time_cuda.fast_time_profile``, K2
+``stft_cuda.psd_phase1`` and K3 ``stft_cuda.db_rescale``. Each wrapper
+runs its plain PyTorch version for CPU tensors and launches its kernel, or
+raises, for CUDA tensors. ``_lib.LAUNCHES`` counts the launches."""

@@ -1,0 +1,223 @@
+"""K2 and K3: the fused spectrogram export (STFT → PSD → dB → log bins).
+
+:func:`spectrogram` is the port of the JAX package's untiled
+``ops/stft_pallas.py::spectrogram_pallas`` path, hop 1:
+
+  K2 :func:`psd_phase1` — one-sided PSD [nb_pad, t_pad] of every sliding
+     20-sample window, columns past the valid count zeroed, plus the max of
+     the stored values per 1024-column block (replaces ``_psd_kernel_b3``
+     and ``_psd_kernel``);
+  a ``torch.amax`` of those block maxima — the one cross-column dependency
+     of the global-max dB normalization, kept on the device;
+  K3 :func:`db_rescale` — dB map in the store dtype and the [1024, t_pad]
+     log-frequency intensity in float32, bfloat16 or int8 (replaces
+     ``_db_rescale_kernel``).
+
+Each wrapper runs its plain PyTorch version for CPU tensors and launches
+its kernel (``csrc/stft_export.cu``), or raises, for CUDA tensors. The
+kernels compute at exact float32, which meets both of the JAX package's
+phase-1 precision classes ("high" and "highest"). They keep the operator,
+or a dB tile, whole in shared memory, so on CUDA they take nb_pad ≤ 272
+(nfft ≤ 512); larger nfft needs the bin-blocked pair K4 (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fmcw_radar_processing_tpu_torch.dsp.stft import (
+    DB_FLOOR,
+    INT8_DB_RANGE,
+    INT8_SCALE,
+    LN10_INV_20,
+    StftOperator,
+    _log_interp_matrix,
+    log_interp,
+    psd_db,
+    quantize_db_int8,
+)
+from fmcw_radar_processing_tpu_torch.ops import _lib
+from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+
+PSD_TILE = 1024  # columns per K2 block; t_pad is a multiple of it
+DB_TILE = 128  # columns per K3 block
+WINDOW = 20  # the window length the kernels are built for
+# nb_pad ceiling of the untiled kernels: nfft 512 under the bf16 store's
+# 16-alignment. K3 keeps an nb_pad × 128 float32 dB tile in shared memory
+# (139 KB here; 227 KB is the most a block may have).
+UNTILED_MAX_BINS = 272
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _folded_operator(op: StftOperator, align: int = 8) -> np.ndarray:
+    """[2·nb_pad, W] stacked re/im DFT operator with √(scale·dbl) folded
+    into each row pair (so the PSD is a pure square-add), zero-padded so
+    nb_pad is a multiple of ``align`` (8, or 16 for a bfloat16 dB store)."""
+    nb = op.num_bins
+    dbl = np.full(nb, 2.0, np.float32)
+    dbl[0] = 1.0
+    if op.nfft % 2 == 0:
+        dbl[-1] = 1.0
+    c = np.sqrt(op.scale * dbl).astype(np.float32)[:, None]
+    nb_pad = -(-nb // align) * align
+    a2 = np.zeros((2 * nb_pad, op.window_length), np.float32)
+    a2[:nb] = op.a_re * c
+    a2[nb_pad : nb_pad + nb] = op.a_im * c
+    return a2
+
+
+@functools.lru_cache(maxsize=8)
+def _log_interp_gather(nb: int, num_bins: int):
+    """(i0 int32, w0 f32, w1 f32) [num_bins]: the two nonzeros of each row
+    of :func:`_log_interp_matrix`, at columns i0 and i0 + 1."""
+    w = _log_interp_matrix(nb, num_bins)
+    pos = np.logspace(0.0, np.log10(nb - 1), num_bins)
+    i0 = np.clip(np.floor(pos).astype(np.int64), 0, nb - 2)
+    rows = np.arange(num_bins)
+    return (i0.astype(np.int32), np.ascontiguousarray(w[rows, i0]),
+            np.ascontiguousarray(w[rows, i0 + 1]))
+
+
+def _check_untiled(nb_pad: int) -> None:
+    if nb_pad > UNTILED_MAX_BINS:
+        raise NotImplementedError(
+            f"nb_pad {nb_pad} > {UNTILED_MAX_BINS} (nfft > 512) needs the "
+            "bin-blocked export kernels, ROADMAP Queue 2 item K4, which are "
+            "not ported to CUDA yet")
+
+
+def psd_phase1_ref(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
+                   t_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2 (im2col by ``unfold`` + one float32 matmul).
+
+    sig: [L] float32 with L − W + 1 ≤ t_pad; nv: valid column count.
+    Returns (p [nb_pad, t_pad], tmax [t_pad / PSD_TILE])."""
+    pin_f32_matmul()
+    wl = a2.shape[1]
+    sig_pad = F.pad(sig.to(torch.float32), (0, t_pad + wl - 1 - sig.shape[0]))
+    frames = sig_pad.unfold(0, wl, 1).T  # [W, t_pad]
+    s2 = a2 @ frames
+    p = s2[:nb_pad] ** 2 + s2[nb_pad:] ** 2
+    col = torch.arange(t_pad, device=sig.device)
+    p = torch.where(col < nv, p, 0.0)
+    tmax = p.reshape(nb_pad, t_pad // PSD_TILE, PSD_TILE).amax(dim=(0, 2))
+    return p, tmax
+
+
+def psd_phase1(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
+               t_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2. CPU tensors: the plain version; CUDA tensors: the kernel."""
+    if sig.device.type == "cpu":
+        return psd_phase1_ref(sig, nv, a2, nb_pad, t_pad)
+    lib = _lib.load_kernels()
+    _check_untiled(nb_pad)
+    _lib.check_operand("sig", sig, sig.device, torch.float32)
+    _lib.check_operand("a2", a2, sig.device, torch.float32)
+    if sig.ndim != 1 or a2.shape != (2 * nb_pad, WINDOW):
+        raise ValueError(f"psd_phase1 takes sig [L] and a2 [2·nb_pad, "
+                         f"{WINDOW}], got {tuple(sig.shape)}, "
+                         f"{tuple(a2.shape)}")
+    if t_pad % PSD_TILE or sig.shape[0] - WINDOW + 1 > t_pad:
+        raise ValueError(f"t_pad {t_pad} must be a multiple of {PSD_TILE} "
+                         f"covering L − {WINDOW - 1} = "
+                         f"{sig.shape[0] - WINDOW + 1} columns")
+    p = torch.empty((nb_pad, t_pad), dtype=torch.float32, device=sig.device)
+    tmax = torch.empty(t_pad // PSD_TILE, dtype=torch.float32,
+                       device=sig.device)
+    stream = torch.cuda.current_stream(sig.device).cuda_stream
+    rc = lib.psd_phase1_launch(sig.data_ptr(), sig.shape[0], a2.data_ptr(),
+                               nb_pad, p.data_ptr(), tmax.data_ptr(), t_pad,
+                               nv, stream)
+    _lib.check_launch("psd_phase1", rc)
+    return p, tmax
+
+
+def _emit_intensity(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Intensity in the output dtype; int8 is the affine dB code over
+    INT8_DB_RANGE, round half to even, clamped (as the kernel emits it)."""
+    if dtype == torch.int8:
+        return quantize_db_int8(acc)
+    return acc.to(dtype)
+
+
+def db_rescale_ref(p: torch.Tensor, gmax: torch.Tensor, nb: int,
+                   num_bins: int, db_dtype: torch.dtype,
+                   int_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: dB map, then the dense [num_bins, nb−1] float32
+    interpolation plus the Nyquist rank-1 term, consuming the float32 dB."""
+    db = psd_db(p, gmax)
+    return db.to(db_dtype), _emit_intensity(log_interp(db[:nb], num_bins),
+                                            int_dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _gather_tables(nb: int, num_bins: int, device: torch.device):
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _log_interp_gather(nb, num_bins))
+
+
+def db_rescale(p: torch.Tensor, gmax: torch.Tensor, nb: int, num_bins: int,
+               db_dtype: torch.dtype,
+               int_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3. CPU tensors: the plain version; CUDA tensors: the kernel.
+
+    p: [nb_pad, t_pad] float32 PSD; gmax: one float32 on p's device.
+    Returns (db [nb_pad, t_pad] db_dtype, intensity [num_bins, t_pad])."""
+    if p.device.type == "cpu":
+        return db_rescale_ref(p, gmax, nb, num_bins, db_dtype, int_dtype)
+    lib = _lib.load_kernels()
+    nb_pad, t_pad = p.shape
+    _check_untiled(nb_pad)
+    _lib.check_operand("p", p, p.device, torch.float32)
+    if gmax.device != p.device or gmax.dtype != torch.float32 or gmax.numel() != 1:
+        raise ValueError("gmax must be one float32 on p's device")
+    if t_pad % DB_TILE or not 2 <= nb <= nb_pad:
+        raise ValueError(f"db_rescale takes t_pad % {DB_TILE} == 0 and "
+                         f"2 ≤ nb ≤ nb_pad; got p {tuple(p.shape)}, nb {nb}")
+    if db_dtype not in (torch.float32, torch.bfloat16) or int_dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported store dtypes {db_dtype}, {int_dtype}")
+    i0, w0, w1 = _gather_tables(nb, num_bins, p.device)
+    db = torch.empty((nb_pad, t_pad), dtype=db_dtype, device=p.device)
+    out = torch.empty((num_bins, t_pad), dtype=int_dtype, device=p.device)
+    gmax = gmax.reshape(1).contiguous()
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    rc = lib.db_rescale_launch(
+        p.data_ptr(), gmax.data_ptr(), i0.data_ptr(), w0.data_ptr(),
+        w1.data_ptr(), nb_pad, t_pad, num_bins, db.data_ptr(),
+        _DTYPE_CODE[db_dtype], out.data_ptr(), _DTYPE_CODE[int_dtype],
+        LN10_INV_20, DB_FLOOR, INT8_DB_RANGE[0], INT8_SCALE, stream)
+    _lib.check_launch("db_rescale", rc)
+    return db, out
+
+
+def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
+                num_bins: int = 1024, intensity_dtype=torch.float32,
+                db_store_dtype=torch.float32):
+    """Full spectrogram export of a packed |slow-time| signal, hop 1.
+
+    sig: [L] float32 magnitude signal (zeros past ``valid_len``).
+    Returns (psd [nb, T], db [nb, T], intensity [num_bins, T]) with
+    T = L − W + 1 columns; columns ≥ valid_len − W + 1 are zero (psd),
+    DB_FLOOR (db) and the floor column through the interpolation
+    (intensity).
+    """
+    if op.hop != 1:
+        raise ValueError("the fused spectrogram export supports hop=1 only")
+    wl = op.window_length
+    nb = op.num_bins
+    t = sig.shape[0] - wl + 1
+    if t <= 0:
+        raise ValueError(f"signal shorter than one window ({sig.shape[0]} < {wl})")
+    align = 16 if db_store_dtype == torch.bfloat16 else 8
+    nb_pad = -(-nb // align) * align
+    t_pad = -(-t // PSD_TILE) * PSD_TILE
+    a2 = torch.as_tensor(_folded_operator(op, align=align), device=sig.device)
+    p, tmax = psd_phase1(sig, valid_len - wl + 1, a2, nb_pad, t_pad)
+    gmax = tmax.amax()  # stays on the device: no host sync between phases
+    db, intensity = db_rescale(p, gmax, nb, num_bins, db_store_dtype,
+                               intensity_dtype)
+    return p[:nb, :t], db[:nb, :t], intensity[:, :t]

@@ -72,3 +72,7 @@ def make_recording(
     calib = (0.3 + 0.05 * np.cos(2 * np.pi * np.arange(nts) / nts)) * (1.0 + 0.5j)
     return frames.astype(np.complex64), calib.astype(np.complex64)
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips when there is none")

@@ -1,0 +1,309 @@
+"""PyTorch port: the kernel modules (K1, K2, K3) vs the JAX package's Pallas
+kernels, run in interpret mode on the CPU as the JAX tests run them.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; these
+tests hold those plain versions to the Pallas kernels with the tolerances
+the JAX package applies between its own formulations
+(tests/test_pallas_chain.py, tests/test_stft_pallas.py). The tests marked
+``cuda`` hold the CUDA kernels to the plain versions and skip without a
+card.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig
+from fmcw_radar_processing_tpu.dsp.stft import StftOperator as JStftOperator
+from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator
+from fmcw_radar_processing_tpu_torch.ops import _lib
+from fmcw_radar_processing_tpu_torch.ops import fast_time_cuda as ftc
+from fmcw_radar_processing_tpu_torch.ops import stft_cuda as stc
+from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+
+from .test_pipeline import _mixed_recording, _tpu_layout
+
+jftp = importlib.import_module("fmcw_radar_processing_tpu.ops.fast_time_pallas")
+jstp = importlib.import_module("fmcw_radar_processing_tpu.ops.stft_pallas")
+
+OP_KW = dict(window_length=20, beta=3.0, nfft=256, fs=1000.0, hop=1)
+
+
+def _snr_db(got, want) -> float:
+    err = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+    return -20 * np.log10(max(err, 1e-30))
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(1e-30))))
+    return np.exp2(e - 7)
+
+
+def assert_within_one_bf16_ulp(got, want, mask, f32_atol):
+    """Two bf16 roundings of float32 values that agree to ``f32_atol`` land
+    at most one bf16 ulp apart; near 0 dB, where a bf16 ulp is below the
+    float32 tolerance, that tolerance bounds them instead."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    bound = np.maximum(_bf16_ulp(np.maximum(np.abs(got), np.abs(want))), f32_atol)
+    diff = np.abs(got - want)
+    assert np.all(diff[mask] <= bound[mask]), float((diff - bound)[mask].max())
+
+
+def _k1_inputs(cfg, rng, f=12):
+    frames, calib = _mixed_recording(cfg, rng, f=f)
+    raw = to_pair(_tpu_layout(frames)).reshape(f, cfg.pn, 2 * cfg.nts)
+    return raw, to_pair(calib)
+
+
+def _k1_port(cfg, raw, calib, device="cpu"):
+    w = ftc.blocked_weight(cfg, device)
+    off = ftc.calib_offset(torch.as_tensor(calib, device=device), w)
+    x = torch.as_tensor(raw, device=device).reshape(-1, 2 * cfg.nts)
+    return w, off, x
+
+
+# --- (b) K1 -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_plain_matches_pallas(cfg, seed):
+    """vs _profile_kernel_b3 ("high"): waterfall SNR > 80 dB; vs
+    _profile_kernel ("highest"): rtol 1e-5 / atol 1e-2."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(seed))
+    w, off, x = _k1_port(cfg, raw, calib)
+    got = ftc.fast_time_profile(x, w, off, cfg.pn).numpy()
+    assert got.shape == (raw.shape[0], cfg.range_fft_size)
+    high = np.asarray(jftp.fast_time_profile_pallas(
+        jnp.asarray(raw), jnp.asarray(calib), cfg, precision="high"))
+    highest = np.asarray(jftp.fast_time_profile_pallas(
+        jnp.asarray(raw), jnp.asarray(calib), cfg, precision="highest"))
+    assert _snr_db(got, high) > 80.0
+    np.testing.assert_allclose(got, highest, rtol=1e-5, atol=1e-2)
+
+
+def test_k1_offset_is_exact_f32(cfg, rng):
+    """off = calib·W at float32 against a float64 product."""
+    calib = to_pair(rng.standard_normal(cfg.nts) + 1j * rng.standard_normal(cfg.nts))
+    w = ftc.blocked_weight(cfg)
+    off = ftc.calib_offset(torch.as_tensor(calib), w).numpy()
+    want = calib.reshape(1, -1).astype(np.float64) @ w.numpy().astype(np.float64)
+    np.testing.assert_allclose(off, want[0], rtol=1e-5, atol=1e-3)
+
+
+# --- (c) K2 / K3 ----------------------------------------------------------
+
+
+def _signal(l, count, seed=5):
+    rng = np.random.default_rng(seed)
+    sig = np.zeros(l, np.float32)
+    sig[:count] = np.abs(
+        rng.standard_normal(count) + 0.5 * np.sin(np.arange(count) * 0.3)
+    ).astype(np.float32)
+    return sig
+
+
+def _jax_export(sig, count, **kw):
+    op = JStftOperator.create(**OP_KW)
+    out = jstp.spectrogram_pallas(jnp.asarray(sig), jnp.asarray(count), op,
+                                  tile=512, **kw)
+    return [np.asarray(a).astype(np.float32) if a.dtype == jnp.bfloat16
+            else np.asarray(a) for a in out]
+
+
+def _port_export(sig, count, **kw):
+    op = StftOperator.create(**OP_KW)
+    return stc.spectrogram(torch.as_tensor(sig), count, op, **kw)
+
+
+@pytest.mark.parametrize("l,count", [(4096, 4096), (4096, 1000), (700, 650)])
+def test_k2_k3_plain_match_pallas_f32(l, count):
+    sig = _signal(l, count)
+    p, db, intensity = (a.numpy() for a in _port_export(sig, count))
+    p_j, db_j, int_j = _jax_export(sig, count, psd_precision="highest")
+    assert p.shape == p_j.shape and intensity.shape == int_j.shape
+    np.testing.assert_allclose(p, p_j, rtol=1e-4, atol=1e-10)
+    m = db_j > -120
+    np.testing.assert_allclose(db[m], db_j[m], atol=1e-3)
+    np.testing.assert_array_equal(db == DB_FLOOR, db_j == DB_FLOOR)
+    mi = int_j > -120
+    np.testing.assert_allclose(intensity[mi], int_j[mi], atol=2e-3)
+    # The production phase 1 (bf16x3) in the display band.
+    _, _, int_h = _jax_export(sig, count, psd_precision="high")
+    mh = int_h > -40
+    np.testing.assert_allclose(intensity[mh], int_h[mh], atol=4e-3)
+    # Invalid columns: zero PSD, floored dB.
+    ncols = count - 20 + 1
+    assert np.all(p[:, ncols:] == 0.0)
+    assert np.all(db[:, ncols:] == DB_FLOOR)
+
+
+def test_k2_k3_plain_match_pallas_bf16_stores():
+    """Production stores: bf16 dB map and bf16 intensity."""
+    sig = _signal(4096, 1000)
+    _, db, intensity = _port_export(sig, 1000, intensity_dtype=torch.bfloat16,
+                                    db_store_dtype=torch.bfloat16)
+    assert db.dtype == torch.bfloat16 and intensity.dtype == torch.bfloat16
+    _, db_j, int_j = _jax_export(sig, 1000, psd_precision="highest",
+                                 intensity_dtype=jnp.bfloat16,
+                                 db_store_dtype=jnp.bfloat16)
+    db, intensity = db.float().numpy(), intensity.float().numpy()
+    assert_within_one_bf16_ulp(db, db_j, db_j > -120, 1e-3)
+    assert_within_one_bf16_ulp(intensity, int_j, int_j > -120, 2e-3)
+    np.testing.assert_array_equal(db == DB_FLOOR, db_j == DB_FLOOR)
+
+
+def test_k2_k3_plain_match_pallas_int8():
+    """int8 codes equal, or one code apart where the float32 intensity lies
+    within its tolerance (2e-3 dB) of a rounding half step."""
+    sig = _signal(4096, 1000)
+    _, _, codes = _port_export(sig, 1000, intensity_dtype=torch.int8)
+    _, _, int_f32 = _port_export(sig, 1000)
+    _, _, codes_j = _jax_export(sig, 1000, psd_precision="highest",
+                                intensity_dtype=jnp.int8)
+    assert codes.dtype == torch.int8
+    codes, int_f32 = codes.numpy().astype(np.int32), int_f32.numpy()
+    diff = np.abs(codes - codes_j.astype(np.int32))
+    assert diff.max() <= 1
+    lo, _ = stc.INT8_DB_RANGE
+    pos = (int_f32 - lo) * stc.INT8_SCALE
+    near_half = np.abs(pos - np.floor(pos) - 0.5) <= 2e-3 * stc.INT8_SCALE
+    assert np.all(near_half[diff == 1])
+    assert (diff == 0).mean() > 0.999
+
+
+def test_k3_plain_floor_and_all_zero_psd():
+    """gmax = 0 (all-zero PSD): every dB is the floor; the G > 0 guard."""
+    p = torch.zeros((136, 1024))
+    db, intensity = stc.db_rescale(p, p.amax(), 129, 1024, torch.float32,
+                                   torch.float32)
+    assert torch.all(db == DB_FLOOR)
+    np.testing.assert_allclose(intensity.numpy(), DB_FLOOR, atol=0.2)
+
+
+# --- (i) no silent fallback ------------------------------------------------
+
+
+def _fail_if_called(*args, **kwargs):
+    raise AssertionError("plain version reached from a non-CPU tensor")
+
+
+def test_wrappers_raise_without_kernel_library(cfg, monkeypatch, tmp_path):
+    """A non-CPU tensor goes to the kernel or raises: with no nvcc the
+    loader raises, and the plain versions are never called."""
+    monkeypatch.setattr(_lib, "_lib", None)
+    monkeypatch.setattr(_lib, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_lib, "library_path",
+                        lambda: tmp_path / "libmissing.so")
+    monkeypatch.setattr(ftc, "fast_time_profile_ref", _fail_if_called)
+    monkeypatch.setattr(stc, "psd_phase1_ref", _fail_if_called)
+    monkeypatch.setattr(stc, "db_rescale_ref", _fail_if_called)
+    launches = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    with pytest.raises(_lib.KernelBuildError, match="nvcc"):
+        ftc.fast_time_profile(torch.empty(32, 128, **meta),
+                              torch.empty(128, 512, **meta),
+                              torch.empty(512, **meta), 16)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.psd_phase1(torch.empty(2000, **meta), 1981,
+                       torch.empty(288, 20, **meta), 144, 2048)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.db_rescale(torch.empty(144, 2048, **meta), torch.empty((), **meta),
+                       129, 1024, torch.bfloat16, torch.bfloat16)
+    assert _lib.LAUNCHES == launches
+
+
+def test_cuda_pipeline_raises_without_gpu(monkeypatch, tmp_path):
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+    from fmcw_radar_processing_tpu_torch.serve.cli import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = str(tmp_path / "rec")
+    assert cli_main(["synth", base, "--frames", "4"]) == 0
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_main(["process", base, "--device", "cuda",
+                  "--output-dir", str(tmp_path / "out")])
+    from fmcw_radar_processing_tpu.config import default_device_config
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        RadarPipeline(RadarConfig.create(default_device_config()),
+                      device="cuda")
+
+
+@pytest.mark.parametrize("nfft", [544, 1024])
+def test_untiled_kernels_reject_large_nfft(monkeypatch, nfft):
+    """On CUDA, nfft > 512 needs the bin-blocked pair K4 (not ported); nfft
+    512 itself fits the untiled kernels under either alignment."""
+    monkeypatch.setattr(_lib, "load_kernels", lambda: None)
+    nb = nfft // 2 + 1
+    nb_pad = -(-nb // 8) * 8
+    meta = dict(device="meta", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="K4"):
+        stc.psd_phase1(torch.empty(2000, **meta), 1981,
+                       torch.empty(2 * nb_pad, 20, **meta), nb_pad, 2048)
+    with pytest.raises(NotImplementedError, match="K4"):
+        stc.db_rescale(torch.empty(nb_pad, 2048, **meta), torch.empty((), **meta),
+                       nb, 1024, torch.float32, torch.float32)
+    assert -(-257 // 16) * 16 <= stc.UNTILED_MAX_BINS
+
+
+# --- (j) CUDA kernels vs plain versions (need a card) ----------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+
+    pin_f32_matmul()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [12, 1000])
+def test_k1_kernel_matches_plain(cfg, cuda_device, f):
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(3), f=f)
+    w, off, x = _k1_port(cfg, raw, calib, cuda_device)
+    before = _lib.LAUNCHES["fast_time_profile"]
+    got = ftc.fast_time_profile(x, w, off, cfg.pn)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fast_time_profile"] == before + 1
+    want = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("l,count", [(4096, 1000), (70_000, 69_000)])
+def test_k2_k3_kernels_match_plain(cuda_device, int_dtype, l, count):
+    sig = torch.as_tensor(_signal(l, count), device=cuda_device)
+    op = StftOperator.create(**OP_KW)
+    db_dtype = torch.bfloat16 if int_dtype == torch.bfloat16 else torch.float32
+    align = 16 if db_dtype == torch.bfloat16 else 8
+    nb, nb_pad = op.num_bins, -(-op.num_bins // align) * align
+    t_pad = -(-(l - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    a2 = torch.as_tensor(stc._folded_operator(op, align), device=cuda_device)
+    p, tmax = stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad)
+    p_ref, tmax_ref = stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad)
+    torch.testing.assert_close(p, p_ref, rtol=1e-4, atol=1e-10)
+    torch.testing.assert_close(tmax, tmax_ref, rtol=1e-5, atol=0.0)
+    gmax = tmax.amax()
+    db, out = stc.db_rescale(p, gmax, nb, 1024, db_dtype, int_dtype)
+    db_ref, out_ref = stc.db_rescale_ref(p, gmax, nb, 1024, db_dtype, int_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(db == DB_FLOOR, db_ref == DB_FLOOR)
+    m = db_ref.float() > -120
+    torch.testing.assert_close(db.float()[m], db_ref.float()[m], rtol=0,
+                               atol=1e-3 if db_dtype == torch.float32 else 0.5)
+    if int_dtype == torch.int8:
+        assert (out.int() - out_ref.int()).abs().max() <= 1
+    else:
+        mi = out_ref.float() > -120
+        torch.testing.assert_close(out.float()[mi], out_ref.float()[mi], rtol=0,
+                                   atol=2e-3 if int_dtype == torch.float32 else 0.5)
