@@ -2,15 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the shapes of the
-production recording path (65,536 frames of 16 chirps × 64 samples, STFT
-nfft 256), times both, runs ``RadarPipeline.process_recording`` on a
-65,536-frame synthetic recording with launch counters reset just before,
-checks the detections against the injected targets, serves three requests
-through ``RadarService``, and prints a kernel table and a device line as
-JSON. Any failed check raises, so the exit code is non-zero. There is no
-CPU path: without a CUDA device it exits at once.
+Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
+and holds each against its plain PyTorch version, timing both: K1-K3 at
+the shapes of the production recording path (65,536 frames of 16 chirps ×
+64 samples, STFT nfft 256), K4a/K4b at the fidelity profile's (1,024
+frames, nfft 16,384) and at 65,536 columns of nfft 65,536, where offsets
+pass 2^31. Then it drives two main paths, each with the launch counters
+reset just before and read just after: ``RadarPipeline.process_recording``
+under the production profile on a 65,536-frame synthetic recording (K1,
+K2, K3) and under the fidelity profile on a 1,024-frame one (K1, K4a,
+K4b), checking the detections against the injected targets. Last, the
+service answers production and default-profile requests, full-recording
+("no") and activity ("yes"). It prints a kernel table and a device line
+as JSON. Any failed check raises, so the exit code is non-zero. There is
+no CPU path: without a CUDA device it exits at once.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ import numpy as np
 import torch
 
 FRAMES = 65_536
+FIDELITY_FRAMES = 1_024  # nfft 16,384: bench.py's 6_fidelity_stft_nextpow2
 SEED = 20261016
 MUTED_SHARE = 0.10
 REPS = 11
+WIDE_REPS = 5  # timing runs at the 65,536-column, nfft 65,536 shape
 
 
 def check(ok: bool, what: str) -> None:
@@ -60,6 +67,112 @@ def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     e = torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
     return torch.exp2(e - 7)
+
+
+def k4_check(stc, db_floor, sig, count, op, int_dtype, last_cols=None):
+    """Run K4a and K4b on the whole signal (float32 dB store) and hold them
+    against their plain versions: on every column, or, with ``last_cols``,
+    on the last columns only, the plain values then computed from the
+    matching sub-signal and the kernels' own gmax (every column depends only
+    on its window and gmax). Returns (errors, timing operands)."""
+    nb = op.num_bins
+    nb_pad = -(-nb // 8) * 8
+    t_pad = -(-(sig.shape[0] - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    nv = count - 19
+    a2 = torch.as_tensor(stc._folded_operator(op, 8), device=sig.device)
+    p, tmax = stc.psd_phase1_tiled(sig, nv, a2, nb_pad, t_pad)
+    gmax = tmax.amax()
+    db, out = stc.db_rescale_tiled(p, gmax, nb, 1024, torch.float32, int_dtype)
+    t0 = 0 if last_cols is None else t_pad - last_cols
+    p_ref, tmax_ref = stc.psd_phase1_ref(sig[t0:], nv - t0, a2, nb_pad, t_pad - t0)
+    perr = (p[:, t0:] - p_ref).abs()
+    ok = bool((perr <= 1e-10 + 1e-4 * p_ref.abs()).all())
+    if last_cols is None:
+        ok &= bool((gmax - tmax_ref.amax()).abs() <= 1e-5 * tmax_ref.amax())
+    p_err = float(perr.max())
+    del perr, p_ref
+    db_ref, out_ref = stc.db_rescale_ref(p[:, t0:].contiguous(), gmax, nb, 1024,
+                                         torch.float32, int_dtype)
+    db_k, out_k = db[:, t0:], out[:, t0:]
+    ok &= bool(torch.equal(db_k == db_floor, db_ref == db_floor))
+    band = db_ref > -120
+    d = (db_k - db_ref).abs()
+    db_err = float(d[band].max())
+    ok &= db_err <= 1e-3
+    if int_dtype == torch.int8:
+        d = (out_k.int() - out_ref.int()).abs()
+        ok &= bool((d <= 1).all())
+    elif int_dtype == torch.bfloat16:
+        d = (out_k.float() - out_ref.float()).abs()
+        ok &= bool((d <= bf16_ulp(out_ref.float())).all())
+    else:
+        d = (out_k - out_ref).abs()
+        ok &= bool((d <= 2e-3).all())
+    int_err = float(d.max())
+    tol = {torch.float32: "2e-3 dB", torch.bfloat16: "one bf16 ulp",
+           torch.int8: "one code"}[int_dtype]
+    where = "all" if last_cols is None else f"the last {last_cols}"
+    print(f"[parity] K4 nfft {op.nfft} L={sig.shape[0]} nb_pad={nb_pad} "
+          f"t_pad={t_pad} ({where} columns, intensity {str(int_dtype)[6:]}): "
+          f"p max_abs_err {p_err:.6g} (tol 1e-10 + 1e-4·|ref|; gmax "
+          f"{float(gmax):.6g}); db {db_err:.6g} above -120 dB (tol 1e-3); "
+          f"intensity {int_err:.6g} (tol {tol}); floor masks equal "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"K4 parity at nfft {op.nfft} ({int_dtype})")
+    return (p_err, db_err, int_err), (sig, nv, a2, nb_pad, t_pad, p, gmax)
+
+
+def k4_times(stc, nb: int, operands, reps: int):
+    """Median ms of K4a and of K4b (float32 stores), each in turns with its
+    plain version: ((K4a, plain), (K4b, plain))."""
+    sig, nv, a2, nb_pad, t_pad, p, gmax = operands
+    f32 = torch.float32
+    k4a = time_pair(lambda: stc.psd_phase1_tiled(sig, nv, a2, nb_pad, t_pad),
+                    lambda: stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad), reps)
+    k4b = time_pair(lambda: stc.db_rescale_tiled(p, gmax, nb, 1024, f32, f32),
+                    lambda: stc.db_rescale_ref(p, gmax, nb, 1024, f32, f32), reps)
+    return k4a, k4b
+
+
+def serve_no(svc, work: str, want_range, what: str) -> None:
+    """One full-recording request: success, the four payloads and the PNG
+    written, the injected range in every detected frame."""
+    res = svc.main({"processAnimalActivity": "no"})
+    check(res["status"] == "success", f"{what}: {res}")
+    for name in ("spectrogram_data.json", "radar_data_range_fft_data.json",
+                 "radar_data_range_speed_data.json", "radar_data_fft_data.json",
+                 "spectrogram.png"):
+        check(os.path.exists(os.path.join(work, name)), f"{what}: {name} written")
+    with open(os.path.join(work, "radar_data_range_speed_data.json")) as fh:
+        rs = json.load(fh)
+    # (T, F) with T = 1 encodes as a flat row (jsonencode rules).
+    ranges = [v for v in np.ravel(np.array(rs["range"], dtype=object))
+              if v is not None]
+    check(len(ranges) > 0 and all(v == float(want_range) for v in ranges),
+          f"{what}: ranges = {want_range}")
+
+
+def serve_yes(svc, work: str, detected: np.ndarray, pn: int, what: str) -> None:
+    """One activity request on a 256-frame recording: three batch JSONs,
+    named and numbered as the JAX service names them, each with a finite
+    [1024, 16·detected − 19] intensity."""
+    res = svc.main({"processAnimalActivity": "yes"})
+    check(res["status"] == "success", f"{what}: {res}")
+    names = [f"radar_data_spectrogram_batch_{b}.json" for b in (1, 2, 3)]
+    check(res["steps"][1]["artifacts"] == names, f"{what}: {res['steps'][1]}")
+    for b, name in enumerate(names):
+        with open(os.path.join(work, name)) as fh:
+            payload = json.load(fh)
+        start, end = 100 * b + 1, min(100 * (b + 1), len(detected))
+        check((payload["title"], payload["start_frame"], payload["end_frame"],
+               payload["filename_base"]) == (f"Spectrogram - Batch {b + 1}",
+                                             start, end, "radar_data"),
+              f"{what}: {name} header")
+        intensity = np.array(payload["intensity"], dtype=np.float64)
+        n_valid = int(detected[start - 1 : end].sum()) * pn - 19
+        check(intensity.shape == (1024, n_valid)
+              and bool(np.isfinite(intensity).all()),
+              f"{what}: {name} intensity finite, shape (1024, {n_valid})")
 
 
 def main() -> int:
@@ -225,6 +338,57 @@ def main() -> int:
     del p, tmax, sig, x
     torch.cuda.empty_cache()
 
+    # K4a + K4b at the fidelity main path's shape: L = 1,024 frames · 16,
+    # about 90% valid, nfft 16,384 (nb 8,193, a partial last bin block).
+    f_len = FIDELITY_FRAMES * cfg.pn
+    f_count = int(present[:FIDELITY_FRAMES].sum()) * cfg.pn
+    f_op = StftOperator.create(window_length=20, beta=3.0, nfft=16_384,
+                               fs=1.0 / cfg.derived.prt)
+    sig = torch.as_tensor(sig_np[:f_len].copy(), device=dev)
+    sig[f_count:] = 0.0
+    k4_errs = []
+    for int_dtype in (torch.float32, torch.int8, torch.bfloat16):
+        errs, ops_ = k4_check(stc, DB_FLOOR, sig, f_count, f_op, int_dtype)
+        if int_dtype == torch.float32:
+            k4_errs.append(errs)
+            (ms4a, plain_ms4a), (ms4b, plain_ms4b) = k4_times(
+                stc, f_op.num_bins, ops_, REPS)
+        del ops_
+    print(f"[time] K4a kernel {ms4a:.4f} ms, plain {plain_ms4a:.4f} ms; "
+          f"K4b kernel {ms4b:.4f} ms, plain {plain_ms4b:.4f} ms "
+          f"(nfft {f_op.nfft}, L {f_len}, float32 stores, median of {REPS})")
+    del sig
+    torch.cuda.empty_cache()
+
+    # Index width: L = 65,536 at nfft 65,536, where nb_pad · t_pad =
+    # 32,776 · 65,536 > 2^31. The last 2,048 columns straddle the valid count.
+    w_op = StftOperator.create(window_length=20, beta=3.0, nfft=65_536,
+                               fs=1.0 / cfg.derived.prt)
+    w_len = 4_096 * cfg.pn
+    sig = torch.as_tensor(sig_np[:w_len].copy(), device=dev)
+    sig[w_len - 1000:] = 0.0
+    errs, ops_ = k4_check(stc, DB_FLOOR, sig, w_len - 1000, w_op, torch.float32,
+                          last_cols=2048)
+    k4_errs.append(errs)
+    torch.cuda.empty_cache()
+    (wms4a, wplain4a), (wms4b, wplain4b) = k4_times(stc, w_op.num_bins, ops_,
+                                                    WIDE_REPS)
+    print(f"[time] K4a kernel {wms4a:.4f} ms, plain {wplain4a:.4f} ms; "
+          f"K4b kernel {wms4b:.4f} ms, plain {wplain4b:.4f} ms "
+          f"(nfft {w_op.nfft}, L {w_len}, float32 stores, median of {WIDE_REPS})")
+    rows.append(dict(name="psd_phase1_tiled", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:215",
+                     max_abs_err=max(e[0] for e in k4_errs), ms=ms4a,
+                     plain_ms=plain_ms4a))
+    rows.append(dict(name="db_rescale_tiled", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:238",
+                     max_abs_err=max(max(e[1:]) for e in k4_errs), ms=ms4b,
+                     plain_ms=plain_ms4b))
+    del sig, ops_
+    torch.cuda.empty_cache()
+
     # 5a. A small recording on the card against the port's CPU path (the
     # plain versions, held to the JAX package and the f64 oracle by the
     # tests). This also warms cuBLAS and the allocator.
@@ -267,8 +431,10 @@ def main() -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(timer.pretty())
     print(f"[main] launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched on the main path")
+    for name in ("fast_time_profile", "psd_phase1", "db_rescale"):
+        check(launches[name] > 0, f"{name} launched on the main path")
+    for name in ("psd_phase1_tiled", "db_rescale_tiled"):
+        check(launches[name] == 0, f"{name} not launched at nfft 256")
     check(np.array_equal(out.detected, present), "detected frames = target frames")
     det = out.detected
     want_range = np.float32(strong.range_bin(cfg)) * np.float32(cfg.derived.dist_per_bin)
@@ -295,7 +461,74 @@ def main() -> int:
           f"{int((psd == DB_FLOOR).sum())} floor values, no floored column")
     del out, inten, psd
 
-    # 6. The service: three requests on a 256-frame recording.
+    # 6. The fidelity profile — the bare AlgorithmConfig, the service's
+    # default — whose nfft = 2^nextpow2(count) takes K4 past 512 bins.
+    fcfg = RadarConfig.create(default_device_config())
+    fpresent = present[:FIDELITY_FRAMES]
+    frec = synthesize_recording(fcfg, FIDELITY_FRAMES, (strong, weak),
+                                seed=SEED + 2, target_present=fpresent)
+    f_raw = to_pair(frec.rx1()).reshape(FIDELITY_FRAMES, cfg.pn, 2 * cfg.nts)
+    f_cal = to_pair(frec.calib_vector(0, cfg.nts))
+    fpipe = RadarPipeline(fcfg, device=dev)
+
+    # 6a. Its first 128 frames (nfft 2,048) on the card against the CPU
+    # plain path, with the fidelity tolerances of the CPU tests.
+    got = fpipe.process_recording(f_raw[:128], f_cal)
+    want = RadarPipeline(fcfg, device="cpu").process_recording(f_raw[:128], f_cal)
+    check(np.array_equal(got.detected, want.detected), "fidelity small: detected")
+    check(np.array_equal(got.target_range, want.target_range, equal_nan=True),
+          "fidelity small: ranges")
+    check(np.array_equal(got.target_speed, want.target_speed, equal_nan=True),
+          "fidelity small: speeds")
+    check(got.spectrogram_psd_db.shape[0] == 1025, "fidelity small: nfft 2048")
+    for name, tol in (("spectrogram_psd_db", 1e-3), ("spectrogram_intensity", 2e-3)):
+        a, b = getattr(got, name), getattr(want, name)
+        check(a.shape == b.shape, f"fidelity small: {name} shape")
+        band, deep = b > -40, b > -120
+        check(float(np.abs(a - b)[band].max()) <= tol
+              and float(np.abs(a - b)[deep].max()) <= 0.2
+              and np.array_equal(a == DB_FLOOR, b == DB_FLOOR),
+              f"fidelity small: {name} within {tol} dB above -40 dB, 0.2 dB "
+              "above -120 dB, floors equal")
+    print("[fidelity small] 128-frame fidelity recording (nfft 2048) on cuda "
+          "matches the CPU plain path")
+
+    # 6b. The fidelity main path: 1,024 frames, nfft 16,384, counted and timed.
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    fout = fpipe.process_recording(f_raw, f_cal, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    f_launches = dict(_lib.LAUNCHES)
+    print(f"[fidelity] process_recording {FIDELITY_FRAMES} frames: "
+          f"{seconds:.4f} s = {FIDELITY_FRAMES / seconds:,.1f} frames/s end to end")
+    print(timer.pretty())
+    print(f"[fidelity] launches {f_launches}")
+    for name in ("fast_time_profile", "psd_phase1_tiled", "db_rescale_tiled"):
+        check(f_launches[name] > 0, f"{name} launched on the fidelity path")
+    for name in ("psd_phase1", "db_rescale"):
+        check(f_launches[name] == 0, f"{name} not launched at nfft 16384")
+    det = fout.detected
+    check(np.array_equal(det, fpresent), "fidelity: detected frames = target frames")
+    check(np.all(fout.target_range[0, det] == want_range)
+          and np.all(fout.target_speed[0, det] == want_speed),
+          f"fidelity: ranges = {want_range}, speeds = {want_speed}")
+    n_valid = int(det.sum()) * cfg.pn - 19
+    inten, psd = fout.spectrogram_intensity, fout.spectrogram_psd_db
+    check(inten.shape == (1024, n_valid) and psd.shape == (8193, n_valid),
+          "fidelity: spectrogram shapes (nfft 16384)")
+    check(bool(np.isfinite(inten).all()), "fidelity: intensity finite")
+    check(float(psd.max()) == 0.0 and bool((psd >= DB_FLOOR).all()),
+          "fidelity: dB map normalized to 0 dB and floored at DB_FLOOR")
+    check(not (psd == DB_FLOOR).all(axis=0).any(), "fidelity: no floored column")
+    print(f"[fidelity] range {want_range} m and speed {want_speed} m/s in all "
+          f"{int(det.sum())} detected frames; intensity {inten.shape} finite, "
+          f"dB map {psd.shape} max 0, no floored column")
+    del fout, inten, psd, f_raw, frec
+
+    # 7. The service: three requests on a 256-frame recording.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         blobs, work = os.path.join(tmp, "blobs"), os.path.join(tmp, "work")
@@ -308,25 +541,33 @@ def main() -> int:
                                          storage_spec=f"local:{blobs}",
                                          pretty_json=False))
         for i in range(3):
-            res = svc.main({"processAnimalActivity": "no"})
-            check(res["status"] == "success", f"request {i}: {res}")
-            for name in ("spectrogram_data.json", "radar_data_range_fft_data.json",
-                         "radar_data_range_speed_data.json",
-                         "radar_data_fft_data.json", "spectrogram.png"):
-                check(os.path.exists(os.path.join(work, name)), f"{name} written")
-            with open(os.path.join(work, "radar_data_range_speed_data.json")) as fh:
-                rs = json.load(fh)
-            # (T, F) with T = 1 encodes as a flat row (jsonencode rules).
-            ranges = [v for v in np.ravel(np.array(rs["range"], dtype=object))
-                      if v is not None]
-            check(len(ranges) > 0 and all(v == float(want_range) for v in ranges),
-                  f"request {i}: ranges = {want_range}")
+            serve_no(svc, work, want_range, f"production request {i}")
         print(f"[serve] 3/3 requests succeeded; ranges {float(want_range)} m")
+
+        # The service's default profile (fidelity: nfft 4,096 for "no", 2,048
+        # and 1,024 for the activity batches — K4), then a production "yes".
+        fwork = os.path.join(tmp, "work_default")
+        os.makedirs(fwork)
+        fsvc = RadarService(HandlerConfig(workdir=fwork, pretty_json=False,
+                                          storage_spec=f"local:{blobs}"))
+        check(fsvc.config.profile == "fidelity", "the default profile is fidelity")
+        for i in range(3):
+            serve_no(fsvc, fwork, want_range, f"default request {i}")
+        detected = present[:256]  # the 256-frame recording's target frames
+        for i in range(2):
+            serve_yes(fsvc, fwork, detected, cfg.pn, f"default activity request {i}")
+        serve_yes(svc, work, detected, cfg.pn, "production activity request")
+        print('[serve] default profile: 3/3 "no" and 2/2 "yes" requests '
+              'succeeded (3 batch JSONs each); production: 1/1 "yes"')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # Launches of each kernel on the main path that drives it: the
+    # production run for K1-K3, the fidelity run for K4a/K4b.
+    counts = {**launches, "psd_phase1_tiled": f_launches["psd_phase1_tiled"],
+              "db_rescale_tiled": f_launches["db_rescale_tiled"]}
     table = [dict(name=r["name"], route=r["route"], source=r["source"],
-                  replaces=r["replaces"], launches=launches[r["name"]],
+                  replaces=r["replaces"], launches=counts[r["name"]],
                   max_abs_err=r["max_abs_err"], ms=r["ms"],
                   plain_ms=r["plain_ms"]) for r in rows]
     print(json.dumps({"kernels": table}))

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "export_common.cuh"
+
 namespace {
 
 constexpr int kWl = 20;             // STFT window length
@@ -110,20 +112,6 @@ psd_phase1_kernel(const float* __restrict__ sig, int sig_len,
   }
 }
 
-__device__ __forceinline__ void emit(float* dst, float v, float, float) {
-  *dst = v;
-}
-__device__ __forceinline__ void emit(__nv_bfloat16* dst, float v, float,
-                                     float) {
-  *dst = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void emit(int8_t* dst, float v, float lo,
-                                     float scale) {
-  float q = rintf((v - lo) * scale);
-  q = fminf(fmaxf(q, 0.f), 255.f);
-  *dst = (int8_t)(int)(q - 128.f);
-}
-
 template <typename DbT, typename OutT>
 __global__ void __launch_bounds__(kP2Threads)
 db_rescale_kernel(const float* __restrict__ p, const float* __restrict__ gmax,
@@ -141,10 +129,8 @@ db_rescale_kernel(const float* __restrict__ p, const float* __restrict__ gmax,
   const float safe = g > 0.f ? g : 1.f;
 
   for (int b = row0; b < nb_pad; b += kP2RowStep) {
-    const float pv = p[(size_t)b * t_pad + t];
-    const float d = pv > 0.f
-        ? fmaxf(ln10_inv_20 * logf(fmaxf(pv, 1e-45f) / safe), db_floor)
-        : db_floor;
+    const float d = psd_to_db(p[(size_t)b * t_pad + t], safe, ln10_inv_20,
+                              db_floor);
     emit(&db[(size_t)b * t_pad + t], d, 0.f, 0.f);
     dbs[b * kP2Tile + col] = d;
   }

@@ -1,10 +1,12 @@
 """Build, load and count the CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+Each source is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together), and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs
 at first use, into ``fmcw_radar_processing_tpu_torch/build/`` under a name
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one is reused. Nothing is built when the module is imported.
+keyed by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one is reused. Nothing is built when the module
+is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run can
 reset it and read it back to show that its path went through the kernels.
@@ -24,13 +26,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fast_time_profile.cu", "stft_export.cu")
+SOURCES = ("fast_time_profile.cu", "stft_export.cu", "stft_export_tiled.cu")
+HEADERS = ("export_common.cuh",)
 # No --use_fast_math: it flushes subnormals to zero (the 1e-45 floor of the
 # dB map is subnormal) and swaps in approximate logf/sqrtf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fast_time_profile": 0, "psd_phase1": 0, "db_rescale": 0}
+LAUNCHES = {"fast_time_profile": 0, "psd_phase1": 0, "db_rescale": 0,
+            "psd_phase1_tiled": 0, "db_rescale_tiled": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -56,7 +60,7 @@ def find_nvcc() -> str | None:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -69,17 +73,29 @@ def _build(path: Path) -> None:
         raise KernelBuildError(
             "nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / s)]
+                for s, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        # (command, stdout, stderr, exit code): communicate() waits first.
+        steps = [(c, *p.communicate(), p.returncode)
+                 for c, p in zip(cmds, procs)]
+        tmp = os.path.join(work, path.name)
+        if all(rc == 0 for *_, rc in steps):
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.stdout, proc.stderr, proc.returncode))
+        path.with_suffix(".log").write_text("".join(
+            " ".join(c) + "\n" + out + err for c, out, err, _ in steps))
+        for c, _, err, rc in steps:
+            if rc != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({rc}) on {os.path.basename(c[-1])}:\n"
+                    f"{err[-4000:]}")
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -91,6 +107,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,
                                       f, f, f, f, p]
     lib.db_rescale_launch.restype = i
+    lib.psd_phase1_tiled_launch.argtypes = [p, i, p, i, p, p, i, i, p]
+    lib.psd_phase1_tiled_launch.restype = i
+    lib.db_rescale_tiled_launch.argtypes = [p, p, p, p, p, p, i, i, p, i, p, i,
+                                            f, f, f, f, p]
+    lib.db_rescale_tiled_launch.restype = i
 
 
 def load_kernels() -> ctypes.CDLL:

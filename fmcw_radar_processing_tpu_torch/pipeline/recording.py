@@ -1,13 +1,12 @@
-"""Full-recording pipeline — the reference's ``radar_processing('no')``.
+"""Recording pipelines — the reference's ``radar_processing('no')`` and
+``radar_processing('yes')``.
 
 Host/device split, as in the JAX package: the per-frame chain, packing and
 the spectrogram export run on ``device``; the host reads back the
-slow-time valid count once (the STFT's nfft is 2^nextpow2 of it in the
-reference, radar_processing.m:273, unless the config pins it) and then
-assembles the JSON payloads from the final arrays.
-
-Activity mode (``radar_processing('yes')``) and the literal fft-snapshot
-quirk are not ported yet.
+slow-time valid count once per spectrogram (the STFT's nfft is
+2^nextpow2 of it in the reference, radar_processing.m:273, unless the
+config pins it) and then assembles the JSON payloads from the final
+arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import torch
 
 from fmcw_radar_processing_tpu.config import RadarConfig
 from fmcw_radar_processing_tpu.config.radar import next_pow2
+from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime
 from fmcw_radar_processing_tpu_torch.dsp.stft import (
     StftOperator,
     decode_db_int8,
@@ -87,6 +87,17 @@ class RecordingOutputs:
     payloads: dict[str, dict]  # name -> payload dict (4 schemas)
 
 
+@dataclasses.dataclass
+class ActivityBatchOutput:
+    """One activity-mode ('yes') batch spectrogram (radar_processing.m:444-607)."""
+
+    batch: int  # 1-based batch number
+    start_frame: int  # 1-based inclusive
+    end_frame: int  # 1-based inclusive
+    payload: dict
+    filename: str
+
+
 class RadarPipeline:
     """The recording pipeline for a fixed RadarConfig on one device."""
 
@@ -100,13 +111,20 @@ class RadarPipeline:
         a = cfg.algorithm
         if (a.stft_hop or 1) != 1:
             raise NotImplementedError("only hop 1 is ported (stft_hop=None)")
-        if a.compat_linear_index_snapshot:
-            raise NotImplementedError(
-                "compat_linear_index_snapshot is not ported yet")
         pin_f32_matmul()
         self.cfg = cfg
         self.filename = filename
         self._chain = make_frame_chain(cfg, self.device)
+
+    def _device_inputs(self, raw: np.ndarray, calib: np.ndarray):
+        """raw as flat pair rows [F, PN, 2·NTS] and calib as a pair
+        [NTS, 2], float32 on the pipeline's device."""
+        raw = _normalize_raw(raw, self.cfg.nts)
+        calib = np.asarray(calib)
+        if np.iscomplexobj(calib) or calib.ndim == 1:
+            calib = to_pair(calib)
+        return (torch.as_tensor(raw, dtype=torch.float32).to(self.device),
+                torch.as_tensor(calib, dtype=torch.float32).to(self.device))
 
     def run_chain(self, raw: np.ndarray, calib: np.ndarray) -> FrameChainOutputs:
         """Run the per-frame chain.
@@ -114,13 +132,7 @@ class RadarPipeline:
         raw: [F, PN, NTS] complex, pair [F, PN, NTS, 2] float32, or flat
         pair rows [F, PN, 2·NTS]; calib: [NTS] complex or [NTS, 2] pair.
         """
-        raw = _normalize_raw(raw, self.cfg.nts)
-        calib = np.asarray(calib)
-        if np.iscomplexobj(calib) or calib.ndim == 1:
-            calib = to_pair(calib)
-        return self._chain(
-            torch.as_tensor(raw, dtype=torch.float32).to(self.device),
-            torch.as_tensor(calib, dtype=torch.float32).to(self.device))
+        return self._chain(*self._device_inputs(raw, calib))
 
     def _spectrogram_of_signal(self, signal: torch.Tensor, count: int,
                                timer=None):
@@ -140,12 +152,18 @@ class RadarPipeline:
             nfft=a.stft_nfft or next_pow2(count),  # the nfft bucket (:273)
             fs=1.0 / self.cfg.derived.prt)
         n_valid = stft_frame_count(count, wl, op.hop)
+        db_store = _STORE_DTYPES[a.stft_db_store]
+        if -(-op.num_bins // 8) * 8 > 512:
+            # The JAX package's rule (its resolves_tiled): past 512 bins its
+            # export is the bin-blocked float32 path, whatever the config
+            # asks. Which kernel pair runs here is spectrogram()'s own gate.
+            db_store = torch.float32
         with tm.stage("stft", items=count):
             # Reference: STFT of |slow_time| (radar_processing.m:270).
             _, db, intensity = tm.observe(spectrogram(
                 pair_abs(signal), count, op, a.max_freq_bins,
                 intensity_dtype=_STORE_DTYPES[a.intensity_dtype],
-                db_store_dtype=_STORE_DTYPES[a.stft_db_store]))
+                db_store_dtype=db_store))
         with tm.stage("host_decode", items=n_valid):
             intensity = intensity[:, :n_valid].cpu()
             if a.intensity_dtype == "int8":
@@ -194,6 +212,9 @@ class RadarPipeline:
             t_speed = out.speed.cpu().numpy()
             t_strength = out.strength.cpu().numpy()
             detected = out.detected.cpu().numpy()
+            literal_mag = None
+            if cfg.algorithm.compat_linear_index_snapshot:
+                literal_mag = self._literal_snapshot_magnitude(raw, calib)
             payloads = {
                 "spectrogram_data.json": spectrogram_payload(
                     times, log_bins, intensity
@@ -205,7 +226,8 @@ class RadarPipeline:
                     t_range, t_speed, cfg, self.filename
                 ),
                 f"{self.filename}_fft_data.json": fft_snapshot_payload(
-                    waterfall, cfg, self.filename
+                    waterfall, cfg, self.filename,
+                    literal_chirp_magnitude=literal_mag,
                 ),
             }
         return RecordingOutputs(
@@ -221,3 +243,56 @@ class RadarPipeline:
             spectrogram_psd_db=psd,
             payloads=payloads,
         )
+
+    def _literal_snapshot_magnitude(self, raw: np.ndarray, calib: np.ndarray,
+                                    chirp_1based: int = 100) -> np.ndarray:
+        """Quirk #2 literal value (compat_linear_index_snapshot): |range
+        FFT| of chirp #``chirp_1based`` overall — what MATLAB column-linear
+        indexing of the (K, PN, F) cube returns for
+        ``range_tx1rx1_complete(:, 100)`` (radar_processing.m:410-411).
+        Recomputed for the one owning frame (the cube itself is never
+        materialized)."""
+        cfg = self.cfg
+        raw = _normalize_raw(raw, cfg.nts)
+        lin = min(chirp_1based - 1, raw.shape[0] * cfg.pn - 1)  # 0-based, clamped
+        fr, ch = lin // cfg.pn, lin % cfg.pn
+        raw_t, calib_t = self._device_inputs(raw[fr : fr + 1], calib)
+        rf = PackedFastTime.create(cfg, self.device).rf(raw_t, calib_t)
+        return pair_abs(rf[0, ch]).cpu().numpy()  # [K]
+
+    def process_activity(self, raw: np.ndarray,
+                         calib: np.ndarray) -> list[ActivityBatchOutput]:
+        """Animal-activity batch mode — radar_processing('yes') (:440-607).
+
+        Frames are processed in batches of ``batch_size`` (100); each batch
+        with ≥ window_length slow-time samples yields one spectrogram JSON,
+        capped at ``max_plots`` (4). The per-frame chain runs ONCE over the
+        whole recording — only packing and the STFT are per batch.
+        """
+        cfg = self.cfg
+        a = cfg.algorithm
+        out = self.run_chain(raw, calib)
+        f = raw.shape[0]
+        results: list[ActivityBatchOutput] = []
+        for b in range(-(-f // a.batch_size)):
+            if len(results) >= a.max_plots:
+                break  # :597-599
+            start = b * a.batch_size
+            end = min((b + 1) * a.batch_size, f)
+            signal, count_dev = pack_slow_time(out.strongest_chirps[start:end],
+                                               out.detected[start:end], cfg.pn)
+            spec = self._spectrogram_of_signal(signal, int(count_dev))
+            if spec is None:
+                continue  # :534,601-606 insufficient data — no JSON
+            times, log_bins, intensity = spec[:3]
+            results.append(ActivityBatchOutput(
+                batch=b + 1,
+                start_frame=start + 1,
+                end_frame=end,
+                payload=spectrogram_payload(
+                    times, log_bins, intensity, batch=b + 1,
+                    start_frame=start + 1, end_frame=end,
+                    filename_base=self.filename),
+                filename=f"{self.filename}_spectrogram_batch_{b + 1}.json",
+            ))
+        return results

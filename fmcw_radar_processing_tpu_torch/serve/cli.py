@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch pipeline.
 
     python -m fmcw_radar_processing_tpu_torch.serve.cli synth <base> --frames N
-    python -m fmcw_radar_processing_tpu_torch.serve.cli process <base> [--algo production]
-    python -m fmcw_radar_processing_tpu_torch.serve.cli serve-once [--profile production]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli process <base> [--algo production] [--activity]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli serve-once [--profile production] [--activity]
 
 ``--device`` (default ``cuda``) picks where the pipeline runs; ``cpu`` runs
 the plain PyTorch versions of the kernels.
@@ -24,7 +24,7 @@ def cmd_process(args) -> int:
         render_spectrogram_png,
     )
     from fmcw_radar_processing_tpu_torch.serve.handler import load_recording
-    from fmcw_radar_processing_tpu_torch.utils.observe import StageTimer
+    from fmcw_radar_processing_tpu_torch.utils.observe import NullTimer, StageTimer
 
     timer = StageTimer() if args.profile else None
     raw, calib, device = load_recording(args.base)
@@ -35,18 +35,28 @@ def cmd_process(args) -> int:
     pipe = RadarPipeline(cfg, filename=name, device=args.device)
     outdir = args.output_dir or "."
     os.makedirs(outdir, exist_ok=True)
-    out = pipe.process_recording(raw, calib, timer=timer)
-    for fname, payload in out.payloads.items():
-        write_json(os.path.join(outdir, fname), payload,
-                   pretty=not args.compact_json)
-        print(f"wrote {fname}")
-    png = os.path.join(outdir, "spectrogram.png")
-    # Linear-frequency PSD — what surf(T, F, psd) renders
-    # (radar_processing.m:331-340); the JSONs carry the log grid.
-    render_spectrogram_png(png, out.spectrogram_times,
-                           out.spectrogram_linear_freqs,
-                           out.spectrogram_psd_db)
-    print(f"wrote {png}")
+    if args.activity:
+        # One stage, as the JAX CLI times activity mode.
+        with (timer or NullTimer()).stage("activity_batches",
+                                          items=raw.shape[0]):
+            batches = pipe.process_activity(raw, calib)
+        for b in batches:
+            write_json(os.path.join(outdir, b.filename), b.payload,
+                       pretty=not args.compact_json)
+            print(f"wrote {b.filename}")
+    else:
+        out = pipe.process_recording(raw, calib, timer=timer)
+        for fname, payload in out.payloads.items():
+            write_json(os.path.join(outdir, fname), payload,
+                       pretty=not args.compact_json)
+            print(f"wrote {fname}")
+        png = os.path.join(outdir, "spectrogram.png")
+        # Linear-frequency PSD — what surf(T, F, psd) renders
+        # (radar_processing.m:331-340); the JSONs carry the log grid.
+        render_spectrogram_png(png, out.spectrogram_times,
+                               out.spectrogram_linear_freqs,
+                               out.spectrogram_psd_db)
+        print(f"wrote {png}")
     if timer is not None:
         print(timer.pretty())
     return 0
@@ -88,7 +98,8 @@ def cmd_serve_once(args) -> int:
         profile=args.profile,
         device=args.device,
     )
-    result = main({"processAnimalActivity": "no"}, cfg)
+    request = {"processAnimalActivity": "yes" if args.activity else "no"}
+    result = main(request, cfg)
     print(json.dumps(result, indent=2))
     return 0 if result["status"] == "success" else 1
 
@@ -99,9 +110,12 @@ def build_parser() -> argparse.ArgumentParser:
     profile_help = ("fidelity = reference-literal STFT/f32 artifacts; "
                     "production = AlgorithmConfig.production()")
     device_help = "torch device of the pipeline (cuda, or cpu for the plain versions)"
+    activity_help = ("activity mode: one spectrogram JSON per batch of "
+                     "frames (processAnimalActivity 'yes')")
 
     pp = sub.add_parser("process", help="run the signal chain on a recording")
     pp.add_argument("base", help="recording base path (<base>.xml + <base>.raw.bin)")
+    pp.add_argument("--activity", action="store_true", help=activity_help)
     pp.add_argument("--output-dir")
     pp.add_argument("--algo", choices=["fidelity", "production"],
                     default="fidelity", help=profile_help)
@@ -124,6 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     po.add_argument("--fdata", default="radar_data")
     po.add_argument("--workdir", default=".")
     po.add_argument("--storage", default=None)
+    po.add_argument("--activity", action="store_true", help=activity_help)
     po.add_argument("--no-upload", action="store_true")
     po.add_argument("--profile", choices=["fidelity", "production"],
                     default="fidelity", help=profile_help)

@@ -9,8 +9,8 @@ Same request/response contract and steps as the JAX package's
              "steps": [{"step", "status", "message"}, ...]}
 
 Steps: Read Files → Radar Processing → Upload JSON, each failing early
-with the reference's messages. Activity mode ("yes") is not ported yet: it
-fails the Radar Processing step.
+with the reference's messages. "no" writes the four payloads and the PNG;
+"yes" (activity mode) writes one spectrogram JSON per batch.
 """
 
 from __future__ import annotations
@@ -110,32 +110,37 @@ class RadarService:
 
     def _process(self, basepath: str, activity: bool) -> tuple[list[str], int]:
         """Step 2: the signal chain + JSON/PNG export + upload
-        (radar_processing.m:195-436). Returns (written paths, uploads)."""
-        if activity:
-            raise NotImplementedError(
-                "activity mode (processAnimalActivity='yes') is not ported "
-                "to the PyTorch pipeline yet")
+        (radar_processing.m:195-436 'no' / :440-607 'yes').
+        Returns (written paths, uploads)."""
         raw, calib, device = load_recording(basepath)
         if self.config.profile == "production":
             cfg = RadarConfig.create(device, AlgorithmConfig.production())
         else:
             cfg = RadarConfig.create(device)
-        out = self._pipeline_for(cfg).process_recording(raw, calib)
+        pipe = self._pipeline_for(cfg)
+        if activity:  # one JSON per batch (:593), no PNG
+            out = None
+            payloads = [(b.filename, b.payload)
+                        for b in pipe.process_activity(raw, calib)]
+        else:
+            out = pipe.process_recording(raw, calib)
+            payloads = list(out.payloads.items())
         written: list[str] = []
         uploaded = 0
-        for name, payload in out.payloads.items():
+        for name, payload in payloads:
             path = os.path.join(self.config.workdir, name)
             write_json(path, payload, pretty=self.config.pretty_json)
             uploaded += self._upload(path, "application/json")
             written.append(path)
-        png = os.path.join(self.config.workdir, "spectrogram.png")
-        # The reference renders the LINEAR-frequency dB PSD
-        # (radar_processing.m:331-340); only the JSON is log-rescaled.
-        render_spectrogram_png(png, out.spectrogram_times,
-                               out.spectrogram_linear_freqs,
-                               out.spectrogram_psd_db)
-        uploaded += self._upload(png, "image/png")  # :348
-        written.append(png)
+        if out is not None:
+            png = os.path.join(self.config.workdir, "spectrogram.png")
+            # The reference renders the LINEAR-frequency dB PSD
+            # (radar_processing.m:331-340); only the JSON is log-rescaled.
+            render_spectrogram_png(png, out.spectrogram_times,
+                                   out.spectrogram_linear_freqs,
+                                   out.spectrogram_psd_db)
+            uploaded += self._upload(png, "image/png")  # :348
+            written.append(png)
         return written, uploaded
 
     def main(self, request: dict | None = None) -> dict:

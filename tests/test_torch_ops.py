@@ -1,5 +1,6 @@
-"""PyTorch port: the kernel modules (K1, K2, K3) vs the JAX package's Pallas
-kernels, run in interpret mode on the CPU as the JAX tests run them.
+"""PyTorch port: the kernel modules (K1, K2, K3; K4 in test_torch_fidelity.py)
+vs the JAX package's Pallas kernels, run in interpret mode on the CPU as the
+JAX tests run them.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold those plain versions to the Pallas kernels with the tolerances
@@ -10,6 +11,9 @@ card.
 """
 
 import importlib
+import os
+import sys
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -215,6 +219,13 @@ def test_wrappers_raise_without_kernel_library(cfg, monkeypatch, tmp_path):
     with pytest.raises(_lib.KernelBuildError):
         stc.db_rescale(torch.empty(144, 2048, **meta), torch.empty((), **meta),
                        129, 1024, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.psd_phase1_tiled(torch.empty(2000, **meta), 1981,
+                             torch.empty(2064, 20, **meta), 1032, 2048)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.db_rescale_tiled(torch.empty(1032, 2048, **meta),
+                             torch.empty((), **meta), 1025, 1024,
+                             torch.float32, torch.float32)
     assert _lib.LAUNCHES == launches
 
 
@@ -235,21 +246,116 @@ def test_cuda_pipeline_raises_without_gpu(monkeypatch, tmp_path):
                       device="cuda")
 
 
-@pytest.mark.parametrize("nfft", [544, 1024])
-def test_untiled_kernels_reject_large_nfft(monkeypatch, nfft):
-    """On CUDA, nfft > 512 needs the bin-blocked pair K4 (not ported); nfft
-    512 itself fits the untiled kernels under either alignment."""
-    monkeypatch.setattr(_lib, "load_kernels", lambda: None)
-    nb = nfft // 2 + 1
-    nb_pad = -(-nb // 8) * 8
-    meta = dict(device="meta", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        stc.psd_phase1(torch.empty(2000, **meta), 1981,
-                       torch.empty(2 * nb_pad, 20, **meta), nb_pad, 2048)
-    with pytest.raises(NotImplementedError, match="K4"):
-        stc.db_rescale(torch.empty(nb_pad, 2048, **meta), torch.empty((), **meta),
-                       nb, 1024, torch.float32, torch.float32)
-    assert -(-257 // 16) * 16 <= stc.UNTILED_MAX_BINS
+class _StubKernels:
+    """Stands in for the kernel library: records each launch symbol and its
+    integer arguments, launches nothing and reports success."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, tuple]] = []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+
+        return launch
+
+
+@pytest.mark.parametrize("nfft,db_dtype,tiled", [
+    (256, torch.float32, False),
+    (512, torch.bfloat16, False),  # nb_pad 272: the untiled ceiling
+    (1000, torch.bfloat16, True),  # nb_pad 512: a pinned non-power of two
+    (1024, torch.float32, True),
+    (16384, torch.float32, True),
+])
+def test_spectrogram_dispatch_on_device_tensors(monkeypatch, nfft, db_dtype,
+                                                tiled):
+    """A device tensor goes to K2/K3 up to nb_pad 272 and to K4a/K4b above,
+    never to the plain versions; each launch is counted once."""
+    stub = _StubKernels()
+    monkeypatch.setattr(_lib, "load_kernels", lambda: stub)
+    monkeypatch.setattr(_lib, "check_operand", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(stc, "psd_phase1_ref", _fail_if_called)
+    monkeypatch.setattr(stc, "db_rescale_ref", _fail_if_called)
+    launches = dict(_lib.LAUNCHES)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    sig = torch.empty(3000, device="meta")
+    p, db, intensity = stc.spectrogram(sig, 2500, op,
+                                       intensity_dtype=torch.int8,
+                                       db_store_dtype=db_dtype)
+    assert p.shape == db.shape == (op.num_bins, 2981)
+    assert intensity.shape == (1024, 2981) and intensity.dtype == torch.int8
+    assert db.dtype == db_dtype
+    names = [name for name, _ in stub.calls]
+    kernels = (["psd_phase1_tiled", "db_rescale_tiled"] if tiled
+               else ["psd_phase1", "db_rescale"])
+    assert names == [k + "_launch" for k in kernels]
+    align = 16 if db_dtype == torch.bfloat16 else 8
+    nb_pad = -(-op.num_bins // align) * align
+    assert stub.calls[0][1][3] == nb_pad and stub.calls[0][1][6] == 3072
+    assert {k: _lib.LAUNCHES[k] - launches[k] for k in launches} == {
+        k: int(k in kernels) for k in launches}
+
+
+def test_kernel_build_runs_one_nvcc_per_source(monkeypatch, tmp_path):
+    """The build compiles every source with its own nvcc, all started
+    before any is waited for, then links the objects into one library.
+    Each fake compile waits (up to 10 s) until every compile has started,
+    so compiles run one after another would leave an end line early."""
+    log = tmp_path / "argv.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import pathlib, sys, time\n"
+        f"log = pathlib.Path({str(log)!r})\n"
+        "with log.open('a') as fh: fh.write('start ' + sys.argv[-1] + '\\n')\n"
+        "deadline = time.monotonic() + 10\n"
+        f"while log.read_text().count('start ') < {len(_lib.SOURCES)} \\\n"
+        "        and time.monotonic() < deadline:\n"
+        "    time.sleep(0.02)\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "pathlib.Path(out).write_text(' '.join(sys.argv[1:]))\n"
+        "with log.open('a') as fh: fh.write('end ' + sys.argv[-1] + '\\n')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_lib, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path / "build")
+    target = tmp_path / "build" / "libtest.so"
+    _lib._build(target)
+    lines = log.read_text().splitlines()
+    n = len(_lib.SOURCES)
+    # Every compile starts before the first one ends; the link comes last.
+    assert sorted(lines[:n]) == sorted(f"start {_lib.CSRC / s}" for s in _lib.SOURCES)
+    assert all(line.startswith("end ") for line in lines[n:2 * n])
+    assert len(lines) == 2 * n + 2
+    link = target.read_text().split()
+    assert link[:3] == ["-shared", "-o", link[2]]
+    assert [os.path.basename(o) for o in link[3:]] == [s + ".o" for s in _lib.SOURCES]
+    assert target.with_suffix(".log").read_text().count(" -c ") == n
+    assert sorted(p.name for p in target.parent.iterdir()) == [
+        "libtest.log", "libtest.so"]  # the objects' directory is gone
+
+
+def test_kernel_build_failure_names_the_source(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import pathlib, sys\n"
+        "if sys.argv[-1].endswith('stft_export_tiled.cu'):\n"
+        "    sys.stderr.write('error: broken\\n'); sys.exit(2)\n"
+        "pathlib.Path(sys.argv[sys.argv.index('-o') + 1]).write_text('obj')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_lib, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path / "build")
+    target = tmp_path / "build" / "libtest.so"
+    with pytest.raises(_lib.KernelBuildError, match="stft_export_tiled.cu"):
+        _lib._build(target)
+    assert not target.exists()
+    assert "error: broken" in target.with_suffix(".log").read_text()
 
 
 # --- (j) CUDA kernels vs plain versions (need a card) ----------------------
@@ -307,3 +413,66 @@ def test_k2_k3_kernels_match_plain(cuda_device, int_dtype, l, count):
         mi = out_ref.float() > -120
         torch.testing.assert_close(out.float()[mi], out_ref.float()[mi], rtol=0,
                                    atol=2e-3 if int_dtype == torch.float32 else 0.5)
+
+
+def _k4_run(sig, count, op, db_dtype, int_dtype, tiled=True):
+    """One export through the K4 (or K2/K3) wrappers, returning every
+    intermediate: (p, tmax, gmax, db, out)."""
+    align = 16 if db_dtype == torch.bfloat16 else 8
+    nb, nb_pad = op.num_bins, -(-op.num_bins // align) * align
+    t_pad = -(-(sig.shape[0] - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    a2 = torch.as_tensor(stc._folded_operator(op, align), device=sig.device)
+    phase1, phase2 = ((stc.psd_phase1_tiled, stc.db_rescale_tiled) if tiled
+                      else (stc.psd_phase1, stc.db_rescale))
+    p, tmax = phase1(sig, count - 19, a2, nb_pad, t_pad)
+    gmax = tmax.amax()
+    db, out = phase2(p, gmax, nb, 1024, db_dtype, int_dtype)
+    return a2, p, tmax, gmax, db, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nfft,l,count,db_dtype", [
+    (2048, 4096, 3000, torch.float32),  # nb_pad 1032: a partial last bin block
+    (1000, 3000, 2500, torch.bfloat16),  # nb_pad 512: four whole blocks
+])
+def test_k4_kernels_match_plain(cuda_device, int_dtype, nfft, l, count,
+                                db_dtype):
+    sig = torch.as_tensor(_signal(l, count), device=cuda_device)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    before = dict(_lib.LAUNCHES)
+    a2, p, tmax, gmax, db, out = _k4_run(sig, count, op, db_dtype, int_dtype)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["psd_phase1_tiled"] == before["psd_phase1_tiled"] + 1
+    assert _lib.LAUNCHES["db_rescale_tiled"] == before["db_rescale_tiled"] + 1
+    nb_pad, t_pad = p.shape
+    p_ref, tmax_ref = stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad)
+    torch.testing.assert_close(p, p_ref, rtol=1e-4, atol=1e-10)
+    assert tmax.shape == (-(-nb_pad // stc.BIN_BLOCK) * (t_pad // stc.PSD_TILE),)
+    torch.testing.assert_close(gmax, tmax_ref.amax(), rtol=1e-5, atol=0.0)
+    db_ref, out_ref = stc.db_rescale_ref(p, gmax, op.num_bins, 1024, db_dtype,
+                                         int_dtype)
+    assert torch.equal(db == DB_FLOOR, db_ref == DB_FLOOR)
+    m = db_ref.float() > -120
+    torch.testing.assert_close(db.float()[m], db_ref.float()[m], rtol=0,
+                               atol=1e-3 if db_dtype == torch.float32 else 0.5)
+    if int_dtype == torch.int8:
+        assert (out.int() - out_ref.int()).abs().max() <= 1
+    else:
+        mi = out_ref.float() > -120
+        torch.testing.assert_close(out.float()[mi], out_ref.float()[mi], rtol=0,
+                                   atol=2e-3 if int_dtype == torch.float32 else 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("db_dtype", [torch.float32, torch.bfloat16])
+def test_k4_kernels_equal_k2_k3_at_small_nfft(cuda_device, db_dtype):
+    """K4a runs K2's arithmetic per bin block and K4b K3's per row, so at an
+    nb_pad both pairs take, their outputs are bit-equal."""
+    sig = torch.as_tensor(_signal(4096, 3000), device=cuda_device)
+    op = StftOperator.create(**OP_KW)
+    tiled = _k4_run(sig, 3000, op, db_dtype, torch.float32)[1:]
+    untiled = _k4_run(sig, 3000, op, db_dtype, torch.float32, tiled=False)[1:]
+    torch.cuda.synchronize()
+    for i in (0, 2, 3, 4):  # p, gmax, db, intensity
+        assert torch.equal(tiled[i], untiled[i])

@@ -131,12 +131,13 @@ def test_multi_target_slice_matches_jax(cfg, rng, max_targets):
                                rtol=1e-5, atol=1e-6)
 
 
-# --- (f) the fidelity profile, nfft ≤ 512 -----------------------------------
+# --- (f) the fidelity profile ------------------------------------------------
 
 
-@pytest.mark.parametrize("f", [12, 24, 40])
+@pytest.mark.parametrize("f", [12, 24, 40, 64, 100])
 def test_fidelity_slice_matches_jax(cfg, rng, f):
-    """Bare AlgorithmConfig: nfft = 2^nextpow2(L) (128, 256 and 512 here),
+    """Bare AlgorithmConfig: nfft = 2^nextpow2(L) (128, 256, 512, 1024 and
+    2048 here — the last two take the bin-blocked export on both sides),
     float32 stores; vs the JAX fused chain + HIGHEST Pallas export, with the
     tolerances of tests/test_stft_pallas.py."""
     frames, calib = _mixed_recording(cfg, rng, f=f)
@@ -236,13 +237,40 @@ def test_service_payloads_match_jax(blob_root, tmp_path, profile):
                 np.testing.assert_allclose(va, vb, rtol=1e-6, err_msg=key)
 
 
-def test_service_activity_mode_reports_not_ported(blob_root, tmp_path):
-    svc = RadarService(HandlerConfig(workdir=str(tmp_path), device="cpu",
-                                     storage_spec=f"local:{blob_root}"))
-    result = svc.main({"processAnimalActivity": "yes"})
-    assert result["status"] == "error"
-    assert result["message"] == "Failed at radar processing step."
-    assert result["steps"][1]["step"] == "Radar Processing"
+@pytest.mark.parametrize("profile", ["fidelity", "production"])
+def test_service_activity_matches_jax(blob_root, tmp_path, profile):
+    """A "yes" request: one batch JSON (40 frames, nfft 1024 under
+    fidelity), uploaded, with the JAX service's name and content."""
+    from .test_torch_fidelity import assert_intensity_close
+
+    results = {}
+    for name, svc_cls, cfg_cls, extra in (
+        ("port", RadarService, HandlerConfig, {"device": "cpu"}),
+        ("jax", JaxService, JaxHandlerConfig, {}),
+    ):
+        work = tmp_path / name
+        work.mkdir()
+        svc = svc_cls(cfg_cls(workdir=str(work), profile=profile,
+                              storage_spec=f"local:{blob_root}", retries=1,
+                              **extra))
+        results[name] = svc.main({"processAnimalActivity": "yes"})
+        assert results[name]["status"] == "success", results[name]
+    steps = [r["steps"] for r in (results["port"], results["jax"])]
+    assert steps[0][1]["artifacts"] == steps[1][1]["artifacts"] == [
+        "radar_data_spectrogram_batch_1.json"]
+    assert steps[0][2] == steps[1][2]  # "Uploaded 1 artifact(s) to storage."
+    assert os.path.exists(os.path.join(blob_root, "radar_data_spectrogram_batch_1.json"))
+    a, b = (json.loads((tmp_path / n / "radar_data_spectrogram_batch_1.json").read_text())
+            for n in ("port", "jax"))
+    assert a.keys() == b.keys()
+    for key in a:
+        if key == "intensity":
+            assert_intensity_close(_num(a[key]).reshape(np.shape(a[key])),
+                                   _num(b[key]).reshape(np.shape(b[key])), profile)
+        elif key in ("time", "frequency"):
+            np.testing.assert_array_equal(a[key], b[key])
+        else:
+            assert a[key] == b[key], key
 
 
 def test_cli_synth_process_serve_once(tmp_path):
