@@ -3,19 +3,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
-and holds each against its plain PyTorch version, timing both: K1-K3 at
+and holds each against its plain PyTorch version, timing both: K1, K6
+(the range FFT stored too) and K7 (the fused peak search, T = 1 and 3) at
 the shapes of the production recording path (65,536 frames of 16 chirps ×
-64 samples, STFT nfft 256), K4a/K4b at the fidelity profile's (1,024
-frames, nfft 16,384) and at 65,536 columns of nfft 65,536, where offsets
-pass 2^31. Then it drives two main paths, each with the launch counters
-reset just before and read just after: ``RadarPipeline.process_recording``
-under the production profile on a 65,536-frame synthetic recording (K1,
-K2, K3) and under the fidelity profile on a 1,024-frame one (K1, K4a,
-K4b), checking the detections against the injected targets. Last, the
-service answers production and default-profile requests, full-recording
-("no") and activity ("yes"). It prints a kernel table and a device line
-as JSON. Any failed check raises, so the exit code is non-zero. There is
-no CPU path: without a CUDA device it exits at once.
+64 samples), K2-K3 there at STFT nfft 256, K4a/K4b at the fidelity
+profile's shape (1,024 frames, nfft 16,384) and at 65,536 columns of nfft
+65,536, where offsets pass 2^31. Then it drives the main paths, each with
+the launch counters reset just before and read just after:
+``RadarPipeline.process_recording`` under the production profile on a
+65,536-frame synthetic recording with the default impl (K1, K2, K3) and
+with impl "pallas" (K6, K7, K2, K3), the recompute export
+``spectrogram(recompute=True)`` on that run's packed signal (K5a, K5b,
+bit-equal to K2/K3), and the fidelity profile on a 1,024-frame recording
+(K1, K4a, K4b), checking the detections against the injected targets.
+Last, the service answers production and default-profile requests,
+full-recording ("no") and activity ("yes"). It prints a kernel table and a
+device line as JSON. Any failed check raises, so the exit code is
+non-zero. There is no CPU path: without a CUDA device it exits at once.
 """
 
 from __future__ import annotations
@@ -45,15 +49,15 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
-    """Median CUDA-event milliseconds of two callables, run in turns after
+def time_turns(fns: dict, reps: int = REPS) -> dict[str, float]:
+    """Median CUDA-event milliseconds of each callable, run in turns after
     a warmup of each."""
-    for fn in (kernel, plain):
+    for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    times: dict[str, list[float]] = {"kernel": [], "plain": []}
+    times: dict[str, list[float]] = {name: [] for name in fns}
     for _ in range(reps):
-        for name, fn in (("kernel", kernel), ("plain", plain)):
+        for name, fn in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -61,7 +65,13 @@ def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
             stop.record()
             stop.synchronize()
             times[name].append(start.elapsed_time(stop))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
+    """Median CUDA-event milliseconds of a kernel and its plain version."""
+    t = time_turns({"kernel": kernel, "plain": plain}, reps)
+    return t["kernel"], t["plain"]
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -192,14 +202,23 @@ def main() -> int:
     )
     from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator
     from fmcw_radar_processing_tpu_torch.ops import _lib
+    from fmcw_radar_processing_tpu_torch.ops import detect_cuda as dtc
     from fmcw_radar_processing_tpu_torch.ops import fast_time_cuda as ftc
     from fmcw_radar_processing_tpu_torch.ops import stft_cuda as stc
+    from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
+        make_frame_chain,
+        pack_slow_time,
+    )
     from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
     from fmcw_radar_processing_tpu_torch.serve.handler import (
         HandlerConfig,
         RadarService,
     )
-    from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul, to_pair
+    from fmcw_radar_processing_tpu_torch.utils.cplx import (
+        pair_abs,
+        pin_f32_matmul,
+        to_pair,
+    )
     from fmcw_radar_processing_tpu_torch.utils.observe import StageTimer
 
     dev = torch.device("cuda", 0)
@@ -264,7 +283,61 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
                      max_abs_err=k1_err, ms=ms, plain_ms=plain_ms))
-    del prof, prof_ref, err
+    del prof_ref, err
+
+    # K6 on the same x: the range FFT [F, PN, K, 2] (2 GiB) and the profile.
+    rf, prof6 = ftc.fast_time(x, w, off, cfg.pn)
+    rf_ref, prof6_ref = ftc.fast_time_ref(x, w, off, cfg.pn)
+    err = (rf - rf_ref).abs()
+    k6_err = float(err.max())
+    k6_ok = bool((err <= 1e-2 + 1e-5 * rf_ref.abs()).all())
+    del err, rf_ref
+    perr = (prof6 - prof).abs()
+    k6_ok &= bool((perr <= 1e-2 + 1e-5 * prof.abs()).all())
+    k6_ok &= bool(((prof6 - prof6_ref).abs() <= 1e-2 + 1e-5 * prof6_ref.abs()).all())
+    print(f"[parity] K6 fast_time {tuple(x.shape)} -> rf {tuple(rf.shape)}: "
+          f"rf max_abs_err {k6_err:.6g} vs plain, profile max_abs_err "
+          f"{float(perr.max()):.6g} vs K1 (bit-equal: {bool(torch.equal(prof6, prof))}) "
+          f"(tol 1e-2 + 1e-5·|ref|) {'ok' if k6_ok else 'FAIL'}")
+    check(k6_ok, "K6 parity")
+    del rf, perr, prof6_ref, prof
+    torch.cuda.empty_cache()
+    ms6, plain_ms6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
+                               lambda: ftc.fast_time_ref(x, w, off, cfg.pn))
+    print(f"[time] K6 kernel {ms6:.4f} ms, plain {plain_ms6:.4f} ms "
+          f"(median of {REPS})")
+    rows.append(dict(name="fast_time", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:35",
+                     max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6))
+    torch.cuda.empty_cache()
+
+    # K7 on K6's profile [65,536, 256], at T = 1 and on a T = 3 config: every
+    # slot equal to the plain version, invalid ones included.
+    cfg3 = RadarConfig.create(default_device_config(),
+                              AlgorithmConfig.production(max_num_targets=3))
+    k7_err = 0.0
+    for c in (cfg, cfg3):
+        got = dtc.search_peaks_fused(prof6, c)
+        want = dtc.search_peaks_fused_ref(prof6, c)
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        k7_err = max(k7_err, float((got.magnitude - want.magnitude).abs().max()))
+        n_valid = int(got.valid.sum())
+        print(f"[parity] K7 search_peaks_fused {tuple(prof6.shape)} T="
+              f"{c.algorithm.max_num_targets}: idx, magnitude, valid equal "
+              f"{same}; {n_valid} valid of {got.valid.numel()} slots "
+              f"{'ok' if all(same) else 'FAIL'}")
+        check(all(same) and 0 < n_valid < got.valid.numel(), "K7 parity")
+    ms7, plain_ms7 = time_pair(lambda: dtc.search_peaks_fused(prof6, cfg),
+                               lambda: dtc.search_peaks_fused_ref(prof6, cfg))
+    print(f"[time] K7 kernel {ms7:.4f} ms, plain {plain_ms7:.4f} ms "
+          f"(T=1, median of {REPS})")
+    rows.append(dict(name="search_peaks_fused", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/detect.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/detect_pallas.py:29",
+                     max_abs_err=k7_err, ms=ms7, plain_ms=plain_ms7))
+    del prof6, got, want
+    torch.cuda.empty_cache()
 
     # K2 + K3 on a packed-signal-shaped input: L = F·PN, about 90% valid.
     op = StftOperator.create(window_length=20, beta=3.0, nfft=256,
@@ -459,7 +532,177 @@ def main() -> int:
     check(not floor_cols.any(), "no valid column at the floor")
     print(f"[main] intensity {inten.shape} finite, dB map max 0, "
           f"{int((psd == DB_FLOOR).sum())} floor values, no floored column")
+    main_waterfall = out.waterfall
     del out, inten, psd
+
+    # 5b. The materializing chain, impl "pallas" (K6 + K7). First 256 frames
+    # through make_frame_chain with the range FFT on the card against the
+    # CPU plain path, then the 65,536-frame recording, counted and timed.
+    s_dev = [torch.as_tensor(a, device=dev)
+             for a in (s_raw.reshape(256, cfg.pn, -1), s_cal)]
+    s_cpu = [torch.as_tensor(a) for a in (s_raw.reshape(256, cfg.pn, -1), s_cal)]
+    got = make_frame_chain(cfg, dev, return_range_fft=True, impl="pallas")(*s_dev)
+    want = make_frame_chain(cfg, "cpu", return_range_fft=True, impl="pallas")(*s_cpu)
+    check(torch.equal(got.detection.idx.cpu(), want.detection.idx)
+          and torch.equal(got.detected.cpu(), want.detected), "pallas small: detections")
+    check(np.array_equal(got.range.cpu().numpy(), want.range.numpy(), equal_nan=True)
+          and np.array_equal(got.speed.cpu().numpy(), want.speed.numpy(),
+                             equal_nan=True), "pallas small: ranges and speeds")
+    check(torch.allclose(got.waterfall.cpu(), want.waterfall, rtol=1e-5, atol=1e-2),
+          "pallas small: waterfall")
+    scale = float(want.range_fft.abs().max())
+    for name in ("range_fft", "strongest_chirps"):
+        check(torch.allclose(getattr(got, name).cpu(), getattr(want, name),
+                             rtol=1e-5, atol=1e-5 * scale), f"pallas small: {name}")
+    print("[pallas small] 256-frame impl='pallas' chain with the range FFT on "
+          "cuda matches the CPU plain path (cube within 1e-5·max|rf|)")
+    del got, want
+    ppipe = RadarPipeline(cfg, device=dev, impl="pallas")
+    ppipe.process_recording(s_raw, s_cal)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    pout = ppipe.process_recording(raw, calib, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    p_launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ppipe.run_chain(raw, calib)
+    torch.cuda.synchronize()
+    chain_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[pallas] process_recording impl='pallas' {FRAMES} frames: "
+          f"{seconds:.4f} s = {FRAMES / seconds:,.0f} frames/s end to end; peak "
+          f"device memory {peak:.2f} GiB, {chain_peak:.2f} GiB in the frame "
+          "chain alone (its 2 GiB range-FFT cube included)")
+    print(timer.pretty())
+    print(f"[pallas] launches {p_launches}")
+    for name in ("fast_time", "search_peaks_fused", "psd_phase1", "db_rescale"):
+        check(p_launches[name] > 0, f"{name} launched on the impl='pallas' path")
+    check(p_launches["fast_time_profile"] == 0, "K1 not launched on impl='pallas'")
+    det = pout.detected
+    check(np.array_equal(det, present), "pallas: detected frames = target frames")
+    check(np.all(pout.target_range[0, det] == want_range)
+          and np.all(np.isnan(pout.target_range[0, ~det]))
+          and np.all(pout.target_speed[0, det] == want_speed),
+          f"pallas: ranges = {want_range}, speeds = {want_speed}")
+    check(np.allclose(pout.waterfall, main_waterfall, rtol=1e-5, atol=1e-2),
+          "pallas: waterfall = the default impl's")
+    w_err = float(np.abs(pout.waterfall - main_waterfall).max())
+    print(f"[pallas] range {want_range} m and speed {want_speed} m/s in all "
+          f"{int(det.sum())} detected frames; waterfall max_abs_err {w_err:.6g} "
+          "vs the default impl (tol rtol 1e-5 / atol 1e-2)")
+    del pout, main_waterfall, ppipe
+    torch.cuda.empty_cache()
+
+    # 5c. The recompute export K5a/K5b on the main path's own packed
+    # |signal| (L = 1,048,576, nfft 256, nb_pad 136, float32 dB map): bit-
+    # equal to K2/K3, each within K2/K3's bounds of its plain version.
+    chain_out = pipe.run_chain(raw, calib)
+    signal, count_dev = pack_slow_time(chain_out.strongest_chirps,
+                                       chain_out.detected, cfg.pn)
+    sig = pair_abs(signal).contiguous()
+    count = int(count_dev)
+    del chain_out, signal
+    nv = count - 19
+    nb_pad = -(-nb // 8) * 8
+    a2 = torch.as_tensor(stc._folded_operator(op, 8), device=dev)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    _, db_r, int_r = stc.spectrogram(sig, count, op, recompute=True)
+    torch.cuda.synchronize()
+    k5_launches = dict(_lib.LAUNCHES)
+    check(k5_launches["psd_tmax"] == 1 and k5_launches["db_rescale_recompute"] == 1
+          and k5_launches["psd_phase1"] == 0 and k5_launches["db_rescale"] == 0,
+          f"spectrogram(recompute=True) runs K5a and K5b only: {k5_launches}")
+    _, db_m, int_m = stc.spectrogram(sig, count, op)
+    check(torch.equal(db_r, db_m) and torch.equal(int_r, int_m),
+          "spectrogram(recompute=True) bit-equal to spectrogram()")
+    del db_r, int_r, db_m, int_m
+    k5a_err = k5b_err = 0.0
+    for int_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        p, tmax = stc.psd_phase1(sig, nv, a2, nb_pad, t_pad)
+        db, out = stc.db_rescale(p, tmax.amax(), nb, 1024, torch.float32, int_dtype)
+        del p
+        tmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad)
+        gmax_r = tmax_r.amax()
+        db_r, out_r = stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024,
+                                               t_pad, int_dtype)
+        bit = [bool(torch.equal(tmax_r, tmax)), bool(torch.equal(db_r, db)),
+               bool(torch.equal(out_r, out))]
+        del db, out
+        tmax_ref = stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad)
+        ok = bool(((tmax_r - tmax_ref).abs() <= 1e-5 * tmax_ref.abs()).all())
+        k5a_err = max(k5a_err, float((tmax_r - tmax_ref).abs().max()))
+        db_ref, out_ref = stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb,
+                                                       1024, t_pad, int_dtype)
+        ok &= bool(torch.equal(db_r == DB_FLOOR, db_ref == DB_FLOOR))
+        d = (db_r - db_ref).abs()
+        db_err = float(d[db_ref > -120].max())
+        ok &= db_err <= 1e-3
+        if int_dtype == torch.int8:
+            d = (out_r.int() - out_ref.int()).abs()
+            ok &= bool((d <= 1).all())
+        elif int_dtype == torch.bfloat16:
+            d = (out_r.float() - out_ref.float()).abs()
+            ok &= bool((d <= bf16_ulp(out_ref.float())).all())
+        else:
+            d = (out_r - out_ref).abs()
+            ok &= bool((d <= 2e-3).all())
+        int_err = float(d.max())
+        if int_dtype == torch.float32:
+            k5b_err = max(db_err, int_err)
+        tol = {torch.float32: "2e-3 dB", torch.bfloat16: "one bf16 ulp",
+               torch.int8: "one code"}[int_dtype]
+        print(f"[parity] K5a/K5b L={sig.shape[0]} nb_pad={nb_pad} intensity "
+              f"{str(int_dtype)[6:]}: tmax, db, intensity bit-equal to K2/K3 "
+              f"{bit}; vs plain: tmax {float((tmax_r - tmax_ref).abs().max()):.6g} "
+              f"(tol 1e-5·|ref|), db {db_err:.6g} above -120 dB (tol 1e-3), "
+              f"intensity {int_err:.6g} (tol {tol}), floor masks equal "
+              f"{'ok' if ok and all(bit) else 'FAIL'}")
+        check(ok and all(bit), f"K5 parity ({int_dtype})")
+        del db_r, out_r, db_ref, out_ref, d, tmax_ref
+    torch.cuda.empty_cache()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def materializing():
+        p, tmax = stc.psd_phase1(sig, nv, a2, nb_pad, t_pad)
+        return stc.db_rescale(p, tmax.amax(), nb, 1024, f32, bf16)
+
+    def recompute():
+        gmax = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
+        return stc.db_rescale_recompute(sig, nv, a2, gmax, nb, 1024, t_pad, bf16)
+
+    def plain():
+        p, tmax = stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad)
+        return stc.db_rescale_ref(p, tmax.amax(), nb, 1024, f32, bf16)
+
+    export = time_turns({"K2+K3": materializing, "K5a+K5b": recompute,
+                         "plain": plain})
+    print(f"[time] export nfft 256, float32 dB, bf16 intensity: K2+K3 "
+          f"{export['K2+K3']:.4f} ms, K5a+K5b {export['K5a+K5b']:.4f} ms, plain "
+          f"{export['plain']:.4f} ms (in turns, median of {REPS})")
+    ms5a, plain_ms5a = time_pair(
+        lambda: stc.psd_tmax(sig, nv, a2, nb_pad, t_pad),
+        lambda: stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad))
+    gmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
+    ms5b, plain_ms5b = time_pair(
+        lambda: stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024, t_pad, bf16),
+        lambda: stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb, 1024, t_pad,
+                                             bf16))
+    print(f"[time] K5a kernel {ms5a:.4f} ms, plain {plain_ms5a:.4f} ms; K5b "
+          f"kernel {ms5b:.4f} ms, plain {plain_ms5b:.4f} ms (median of {REPS})")
+    rows.append(dict(name="psd_tmax", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
+                     max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a))
+    rows.append(dict(name="db_rescale_recompute", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:178",
+                     max_abs_err=k5b_err, ms=ms5b, plain_ms=plain_ms5b))
+    del sig, a2
 
     # 6. The fidelity profile — the bare AlgorithmConfig, the service's
     # default — whose nfft = 2^nextpow2(count) takes K4 past 512 bins.
@@ -562,10 +805,15 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # Launches of each kernel on the main path that drives it: the
-    # production run for K1-K3, the fidelity run for K4a/K4b.
+    # Launches of each kernel on the path that drives it: the production
+    # run for K1-K3, the fidelity run for K4a/K4b, the impl "pallas" run
+    # for K6/K7, spectrogram(recompute=True) for K5a/K5b.
     counts = {**launches, "psd_phase1_tiled": f_launches["psd_phase1_tiled"],
-              "db_rescale_tiled": f_launches["db_rescale_tiled"]}
+              "db_rescale_tiled": f_launches["db_rescale_tiled"],
+              "fast_time": p_launches["fast_time"],
+              "search_peaks_fused": p_launches["search_peaks_fused"],
+              "psd_tmax": k5_launches["psd_tmax"],
+              "db_rescale_recompute": k5_launches["db_rescale_recompute"]}
     table = [dict(name=r["name"], route=r["route"], source=r["source"],
                   replaces=r["replaces"], launches=counts[r["name"]],
                   max_abs_err=r["max_abs_err"], ms=r["ms"],

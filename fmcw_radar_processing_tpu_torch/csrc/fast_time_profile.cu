@@ -1,6 +1,6 @@
-// K1 — fused fast-time range DFT + magnitude + max over chirps.
+// K1 and K6 — fused fast-time range DFT + magnitude + max over chirps.
 //
-// Replaces the Pallas kernels ops/fast_time_pallas.py::_profile_kernel_b3
+// K1 replaces the Pallas kernels ops/fast_time_pallas.py::_profile_kernel_b3
 // (production, bf16x3) and ::_profile_kernel (fidelity, HIGHEST) of the JAX
 // package. Computes, for flat pair rows x [F·PN, 2·NTS] (interleaved re, im
 // samples) and the BLOCKED packed weight W [2·NTS, 2·K] (columns [0, K)
@@ -9,7 +9,17 @@
 //     y = x·W − off;   prof[f, k] = max over the PN chirps of frame f of
 //                                   sqrt(y[r, k]² + y[r, K + k]²)
 //
-// Only prof [F, K] is written; the range-FFT values live in registers.
+// K1 writes only prof [F, K]; the range-FFT values live in registers.
+//
+// K6 replaces ops/fast_time_pallas.py::_kernel (fast_time_pallas, the
+// materializing stage of impl "pallas"): the same kernel, instantiated to
+// store the range FFT as well, rf [F·PN, K, 2] with (re, im) interleaved —
+// the layout the frame chain's Doppler gather reads. Its profile comes from
+// the same registers as K1's, so the two are bit-equal. Each thread stores
+// per row four bins × (re, im): 32 contiguous bytes, two 16-byte stores.
+// The store adds 2 GiB at 65,536 frames (F·PN·K·8 bytes, about 0.7 ms of
+// HBM time if it overlaps the arithmetic); its offsets are 64-bit, since
+// F·PN·K·2 passes 2^31 at 262,144 frames.
 //
 // What bounds it on an H100: arithmetic. The product is 2·F·PN·128·512
 // flops (137 GFLOP at 65,536 frames) against 512 MiB of input, about 256
@@ -39,10 +49,12 @@ constexpr int kThreads = 256;
 constexpr int kXStride = kRows + 4;  // padded row of the transposed x tile
 constexpr int kSmemBytes = (kIn * 2 * kBins + kIn * kXStride) * 4;
 
+// kStoreRf = false is K1; true is K6 (rf [rows, k, 2] stored too).
+template <bool kStoreRf>
 __global__ void __launch_bounds__(kThreads, 2)
 profile_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ off, float* __restrict__ prof,
-               int rows, int k, int row_tiles) {
+               float* __restrict__ rf, int rows, int k, int row_tiles) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [kIn][2·kBins]
   float* xs = ws + kIn * 2 * kBins;             // [kIn][kXStride], x transposed
@@ -115,6 +127,21 @@ profile_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
 
+    if (kStoreRf) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + ty * 4 + i;
+        if (r < rows) {
+          float4* dst = reinterpret_cast<float4*>(
+              &rf[((size_t)r * k + k0 + tx * 4) * 2]);
+          dst[0] = make_float4(acc_re[i][0] - off_re[0], acc_im[i][0] - off_im[0],
+                               acc_re[i][1] - off_re[1], acc_im[i][1] - off_im[1]);
+          dst[1] = make_float4(acc_re[i][2] - off_re[2], acc_im[i][2] - off_im[2],
+                               acc_re[i][3] - off_re[3], acc_im[i][3] - off_im[3]);
+        }
+      }
+    }
+
     float mx[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -136,16 +163,12 @@ profile_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-}  // namespace
-
-// x [rows, 128] f32, w [128, 2k] f32 (blocked), off [2k] f32, prof [rows/16, k].
-// rows must be a multiple of 16 and k of 64; pointers 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int fast_time_profile_launch(const float* x, const float* w,
-                                        const float* off, float* prof,
-                                        int rows, int k, void* stream) {
+template <bool kStoreRf>
+int launch(const float* x, const float* w, const float* off, float* prof,
+           float* rf, int rows, int k, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      profile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      profile_kernel<kStoreRf>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -155,7 +178,26 @@ extern "C" int fast_time_profile_launch(const float* x, const float* w,
   if (tiles_y > row_tiles) tiles_y = row_tiles;
   if (tiles_y < 1) tiles_y = 1;
   dim3 grid(k / kBins, tiles_y);
-  profile_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      x, w, off, prof, rows, k, row_tiles);
+  profile_kernel<kStoreRf><<<grid, kThreads, kSmemBytes, stream>>>(
+      x, w, off, prof, rf, rows, k, row_tiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x [rows, 128] f32, w [128, 2k] f32 (blocked), off [2k] f32, prof [rows/16, k].
+// rows must be a multiple of 16 and k of 64; pointers 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int fast_time_profile_launch(const float* x, const float* w,
+                                        const float* off, float* prof,
+                                        int rows, int k, void* stream) {
+  return launch<false>(x, w, off, prof, nullptr, rows, k,
+                       (cudaStream_t)stream);
+}
+
+// K6: fast_time_profile_launch's prof, plus rf [rows, k, 2] f32.
+extern "C" int fast_time_launch(const float* x, const float* w,
+                                const float* off, float* prof, float* rf,
+                                int rows, int k, void* stream) {
+  return launch<true>(x, w, off, prof, rf, rows, k, (cudaStream_t)stream);
 }

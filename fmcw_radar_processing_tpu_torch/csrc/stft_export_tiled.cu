@@ -11,7 +11,8 @@
 // The grid is column tiles × 128-bin blocks: a block stages its [2·128, 20]
 // slice of the folded operator (20 KB) and its 1043 signal samples in
 // shared memory, and each thread keeps a column's 20 window samples in
-// registers — K2's inner loop with an outer bin-block index, so the
+// registers — K2's inner loop (psd_value, export_common.cuh) with an outer
+// bin-block index, so the
 // operator no longer has to fit whole. Bound on an H100: the PSD write
 // (nb_pad·t_pad·4 bytes, 0.54 GB at nfft 16,384 and 16,384 columns) and
 // as many nanoseconds of float32 FMAs (2·nb_pad·20 per column, 5.4e9 there).
@@ -44,7 +45,7 @@
 
 namespace {
 
-constexpr int kWl = 20;                       // STFT window length
+constexpr int kWl = kStftTaps;                // STFT window length
 constexpr int kKb = 128;                      // bins per bin block
 constexpr int kAThreads = 256;
 constexpr int kACols = 4;                     // columns per thread
@@ -93,21 +94,7 @@ psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
       const float4* ore = reinterpret_cast<const float4*>(&ops[b * kWl]);
       const float4* oim =
           reinterpret_cast<const float4*>(&ops[(kKb + b) * kWl]);
-      float sr = 0.f, si = 0.f;
-#pragma unroll
-      for (int q = 0; q < kWl / 4; ++q) {
-        const float4 ar = ore[q];
-        const float4 ai = oim[q];
-        sr = fmaf(ar.x, xv[4 * q + 0], sr);
-        sr = fmaf(ar.y, xv[4 * q + 1], sr);
-        sr = fmaf(ar.z, xv[4 * q + 2], sr);
-        sr = fmaf(ar.w, xv[4 * q + 3], sr);
-        si = fmaf(ai.x, xv[4 * q + 0], si);
-        si = fmaf(ai.y, xv[4 * q + 1], si);
-        si = fmaf(ai.z, xv[4 * q + 2], si);
-        si = fmaf(ai.w, xv[4 * q + 3], si);
-      }
-      const float pv = valid ? sr * sr + si * si : 0.f;
+      const float pv = valid ? psd_value(xv, ore, oim) : 0.f;
       p[(size_t)(r0 + b) * t_pad + t] = pv;
       mx = fmaxf(mx, pv);
     }

@@ -32,11 +32,10 @@ def gate_mask(cfg: RadarConfig) -> np.ndarray:
     return (dist >= cfg.algorithm.min_distance) & (dist <= cfg.algorithm.max_distance)
 
 
-def search_peaks(profile: torch.Tensor, cfg: RadarConfig) -> DetectionResult:
-    """Vectorized f_search_peak over arbitrary leading batch dims.
-
-    profile: [..., K] float32 integrated range profile.
-    """
+def masked_peaks(profile: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
+    """The profile [..., K] at its eligible bins — local maxima (≥ both
+    neighbours, −inf outside the row) inside the distance gate and above
+    range_threshold (compared in float32) — and −inf elsewhere."""
     neg = torch.tensor(-torch.inf, dtype=profile.dtype, device=profile.device)
     pad = profile.new_full((*profile.shape[:-1], 1), -torch.inf)
     left = torch.cat([pad, profile[..., :-1]], dim=-1)
@@ -44,7 +43,15 @@ def search_peaks(profile: torch.Tensor, cfg: RadarConfig) -> DetectionResult:
     gate = torch.as_tensor(gate_mask(cfg), device=profile.device)
     eligible = ((profile >= left) & (profile >= right) & gate
                 & (profile > cfg.algorithm.range_threshold))
-    masked = torch.where(eligible, profile, neg)
+    return torch.where(eligible, profile, neg)
+
+
+def search_peaks(profile: torch.Tensor, cfg: RadarConfig) -> DetectionResult:
+    """Vectorized f_search_peak over arbitrary leading batch dims.
+
+    profile: [..., K] float32 integrated range profile.
+    """
+    masked = masked_peaks(profile, cfg)
     t = cfg.algorithm.max_num_targets
     if t == 1:
         # argmax returns the first maximal index: the lower bin on ties.

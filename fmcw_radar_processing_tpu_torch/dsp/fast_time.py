@@ -24,7 +24,7 @@ import torch
 
 from fmcw_radar_processing_tpu.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.windows import blackman
-from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, pin_f32_matmul
 
 
 def dft_matrix(k: int, n: int) -> np.ndarray:
@@ -117,3 +117,12 @@ class PackedFastTime:
         y = y.reshape(f, x.shape[1], t, 2)
         off = self.offset(calib)[idx.to(torch.int64)]  # [F, T, 2]
         return y - off[:, None]
+
+
+def range_profile(range_fft: torch.Tensor) -> torch.Tensor:
+    """Non-coherent integration across chirps (radar_processing.m:210): the
+    max over chirps of |range FFT|, which is MATLAB's abs(max(X, [], 2)).
+
+    range_fft: [..., PN, K, 2] → profile [..., K] float32.
+    """
+    return pair_abs(range_fft).amax(dim=-2)

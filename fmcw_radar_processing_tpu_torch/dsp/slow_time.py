@@ -20,7 +20,7 @@ import torch
 from fmcw_radar_processing_tpu.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.detection import DetectionResult
 from fmcw_radar_processing_tpu_torch.dsp.windows import chebwin
-from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs
+from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, pair_matmul
 
 
 def build_slow_time_matrix(cfg: RadarConfig) -> np.ndarray:
@@ -62,6 +62,23 @@ class SlowTimeOperator:
         return cls(m_re=m_re, m_im=m_im,
                    m_re_t=torch.as_tensor(m_re, device=device),
                    m_im_t=torch.as_tensor(m_im, device=device))
+
+
+def doppler_at_bins(op: SlowTimeOperator, range_fft: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """Doppler spectra at selected range bins only (radar_processing.m:216-219
+    computes them at detected bins only): the PN chirp rows of each bin in
+    ``idx`` gathered from the cube, then the 16-point Doppler matmul.
+
+    range_fft: [..., PN, K, 2]; idx: [..., T] range-bin indices.
+    Returns rd rows [..., T, D, 2].
+    """
+    *lead, pn, _, _ = range_fft.shape
+    index = idx.to(torch.int64)[..., None, :, None].expand(
+        *lead, pn, idx.shape[-1], 2)
+    rows = torch.gather(range_fft, -2, index)  # [..., PN, T, 2]
+    rows = rows.transpose(-3, -2)  # [..., T, PN, 2]
+    return pair_matmul(rows, op.m_re_t, op.m_im_t, "...tp,dp->...td")
 
 
 class DopplerPeaks(NamedTuple):

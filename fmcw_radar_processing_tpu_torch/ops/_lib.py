@@ -26,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fast_time_profile.cu", "stft_export.cu", "stft_export_tiled.cu")
+SOURCES = ("fast_time_profile.cu", "stft_export.cu", "stft_export_tiled.cu",
+           "detect.cu")
 HEADERS = ("export_common.cuh",)
 # No --use_fast_math: it flushes subnormals to zero (the 1e-45 floor of the
 # dB map is subnormal) and swaps in approximate logf/sqrtf.
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fast_time_profile": 0, "psd_phase1": 0, "db_rescale": 0,
-            "psd_phase1_tiled": 0, "db_rescale_tiled": 0}
+            "psd_phase1_tiled": 0, "db_rescale_tiled": 0, "fast_time": 0,
+            "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -112,6 +114,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.db_rescale_tiled_launch.argtypes = [p, p, p, p, p, p, i, i, p, i, p, i,
                                             f, f, f, f, p]
     lib.db_rescale_tiled_launch.restype = i
+    lib.fast_time_launch.argtypes = [p, p, p, p, p, i, i, p]
+    lib.fast_time_launch.restype = i
+    lib.search_peaks_launch.argtypes = [p, p, f, i, i, i, p, p, p, p]
+    lib.search_peaks_launch.restype = i
+    lib.psd_tmax_launch.argtypes = [p, i, p, i, p, i, i, p]
+    lib.psd_tmax_launch.restype = i
+    lib.db_rescale_recompute_launch.argtypes = [p, i, p, i, i, p, p, p, p, i,
+                                                i, p, p, i, f, f, f, f, p]
+    lib.db_rescale_recompute_launch.restype = i
 
 
 def load_kernels() -> ctypes.CDLL:

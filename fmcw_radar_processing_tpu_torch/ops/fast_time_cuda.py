@@ -1,11 +1,16 @@
-"""K1: fused fast-time range DFT + magnitude + max over chirps.
+"""K1 and K6: fused fast-time range DFT + magnitude + max over chirps.
 
-The wrapper :func:`fast_time_profile` launches the CUDA kernel of
-``csrc/fast_time_profile.cu`` (which replaces the JAX package's Pallas
-``ops/fast_time_pallas.py::_profile_kernel_b3`` and ``_profile_kernel``)
-for CUDA tensors, and runs the plain PyTorch version
-:func:`fast_time_profile_ref` for CPU tensors. It never falls back: on a
-CUDA tensor it launches or raises.
+Two wrappers over the kernel of ``csrc/fast_time_profile.cu``:
+
+  K1 :func:`fast_time_profile` — the profile [F, K] only (replaces the JAX
+     package's Pallas ``ops/fast_time_pallas.py::_profile_kernel_b3`` and
+     ``_profile_kernel``);
+  K6 :func:`fast_time` — the range FFT [F, PN, K, 2] stored as well
+     (replaces ``ops/fast_time_pallas.py::_kernel``, impl "pallas").
+
+Each launches its kernel for CUDA tensors and runs its plain PyTorch
+version (:func:`fast_time_profile_ref`, :func:`fast_time_ref`) for CPU
+tensors. Neither falls back: on a CUDA tensor it launches or raises.
 
 The kernel takes the BLOCKED packed weight of
 :func:`_packed_blocked_weight` (columns [:K] give the real part of each
@@ -20,7 +25,10 @@ import numpy as np
 import torch
 
 from fmcw_radar_processing_tpu.config import RadarConfig
-from fmcw_radar_processing_tpu_torch.dsp.fast_time import build_fast_time_matrix
+from fmcw_radar_processing_tpu_torch.dsp.fast_time import (
+    build_fast_time_matrix,
+    range_profile,
+)
 from fmcw_radar_processing_tpu_torch.ops import _lib
 from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
 
@@ -65,14 +73,25 @@ def fast_time_profile_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
     return mag.reshape(-1, pn, k).amax(dim=1)
 
 
+def fast_time_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
+                  pn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: (rf [F, PN, K, 2] with (re, im) pairs, profile
+    [F, K]) of flat pair rows x [F·PN, 2·NTS]."""
+    pin_f32_matmul()
+    k = w.shape[1] // 2
+    y = x @ w - off
+    rf = torch.stack([y[:, :k], y[:, k:]], dim=-1).reshape(-1, pn, k, 2)
+    return rf, range_profile(rf)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor, pn: int):
     if pn != KERNEL_PN:
-        raise ValueError(f"fast_time_profile kernel takes PN={KERNEL_PN}, "
+        raise ValueError(f"the fast-time kernel takes PN={KERNEL_PN}, "
                          f"got {pn}")
     rows, n_in = x.shape
     k2 = w.shape[1]
     if n_in != KERNEL_IN or w.shape[0] != KERNEL_IN:
-        raise ValueError(f"fast_time_profile kernel takes 2·NTS={KERNEL_IN}, "
+        raise ValueError(f"the fast-time kernel takes 2·NTS={KERNEL_IN}, "
                          f"got x {tuple(x.shape)}, w {tuple(w.shape)}")
     if k2 % (2 * KERNEL_BIN_TILE) or off.shape != (k2,):
         raise ValueError(f"K must be a multiple of {KERNEL_BIN_TILE}; "
@@ -104,3 +123,28 @@ def fast_time_profile(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
                                       stream)
     _lib.check_launch("fast_time_profile", rc)
     return prof
+
+
+def fast_time(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
+              pn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Range FFT [F, PN, K, 2] and profile [F, K] of flat pair rows
+    x [F·PN, 2·NTS].
+
+    CPU tensors: the plain version. CUDA tensors: the K6 kernel.
+    """
+    if x.device.type == "cpu":
+        return fast_time_ref(x, w, off, pn)
+    lib = _lib.load_kernels()
+    _check(x, w, off, pn)
+    rows = x.shape[0]
+    k = w.shape[1] // 2
+    prof = torch.empty((rows // pn, k), dtype=torch.float32, device=x.device)
+    rf = torch.empty((rows // pn, pn, k, 2), dtype=torch.float32,
+                     device=x.device)
+    if rows == 0:
+        return rf, prof
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.fast_time_launch(x.data_ptr(), w.data_ptr(), off.data_ptr(),
+                              prof.data_ptr(), rf.data_ptr(), rows, k, stream)
+    _lib.check_launch("fast_time", rc)
+    return rf, prof

@@ -1,9 +1,10 @@
-"""K2/K3 and K4a/K4b: the fused spectrogram export (STFT → PSD → dB → log
-bins).
+"""K2/K3, K4a/K4b and K5a/K5b: the fused spectrogram export (STFT → PSD →
+dB → log bins).
 
 :func:`spectrogram` is the port of the JAX package's
 ``ops/stft_pallas.py::spectrogram_pallas``, hop 1. It runs one of two
-kernel pairs, by the padded bin count nb_pad:
+kernel pairs, by the padded bin count nb_pad, or with ``recompute=True``
+the recompute pair:
 
   nb_pad ≤ 272 (nfft ≤ 512), the untiled pair, which keeps the operator or
   a dB tile whole in shared memory:
@@ -18,17 +19,25 @@ kernel pairs, by the padded bin count nb_pad:
     K4a :func:`psd_phase1_tiled` — the same PSD, with one max per column
        tile and bin block (replaces ``_psd_kernel_tiled``);
     K4b :func:`db_rescale_tiled` — the same dB map and intensity, walking
-       the bin blocks in order (replaces ``_db_rescale_kernel_tiled``).
+       the bin blocks in order (replaces ``_db_rescale_kernel_tiled``);
+  recompute=True, nb_pad ≤ 272, float32 dB map — the PSD is never stored:
+    K5a :func:`psd_tmax` — K2's per-block maxima only (replaces
+       ``_tmax_kernel``);
+    K5b :func:`db_rescale_recompute` — K2's PSD recomputed per column tile,
+       then K3's dB map and intensity, bit-equal to K2 → K3's (replaces
+       ``_db_rescale_recompute_kernel``).
 
 Between the phases a ``torch.amax`` of the maxima — the one cross-column
 dependency of the global-max dB normalization — stays on the device.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel (``csrc/stft_export.cu``, ``csrc/stft_export_tiled.cu``), or
-raises, for CUDA tensors. All four kernels compute at exact float32, which
+raises, for CUDA tensors. All six kernels compute at exact float32, which
 meets both of the JAX package's phase-1 precision classes ("high" and
 "highest"); the plain versions :func:`psd_phase1_ref` and
-:func:`db_rescale_ref` compute both pairs' functions at any nb.
+:func:`db_rescale_ref` compute both pairs' functions at any nb, and
+:func:`psd_tmax_ref` and :func:`db_rescale_recompute_ref` are built on
+them.
 """
 
 from __future__ import annotations
@@ -185,6 +194,31 @@ def psd_phase1_tiled(sig: torch.Tensor, nv: int, a2: torch.Tensor,
     return p, tmax
 
 
+def psd_tmax_ref(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
+                 t_pad: int) -> torch.Tensor:
+    """Plain version of K5a: the tmax [t_pad / PSD_TILE] of
+    :func:`psd_phase1_ref`."""
+    return psd_phase1_ref(sig, nv, a2, nb_pad, t_pad)[1]
+
+
+def psd_tmax(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
+             t_pad: int) -> torch.Tensor:
+    """K5a: K2's per-block PSD maxima without the PSD. CPU tensors: the
+    plain version; CUDA tensors: the kernel."""
+    if sig.device.type == "cpu":
+        return psd_tmax_ref(sig, nv, a2, nb_pad, t_pad)
+    lib = _lib.load_kernels()
+    _check_untiled(nb_pad)
+    _check_phase1_operands(sig, a2, nb_pad, t_pad)
+    tmax = torch.empty(t_pad // PSD_TILE, dtype=torch.float32,
+                       device=sig.device)
+    stream = torch.cuda.current_stream(sig.device).cuda_stream
+    rc = lib.psd_tmax_launch(sig.data_ptr(), sig.shape[0], a2.data_ptr(),
+                             nb_pad, tmax.data_ptr(), t_pad, nv, stream)
+    _lib.check_launch("psd_tmax", rc)
+    return tmax
+
+
 def _emit_intensity(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Intensity in the output dtype; int8 is the affine dB code over
     INT8_DB_RANGE, round half to even, clamped (as the kernel emits it)."""
@@ -216,13 +250,17 @@ def _bin_block_table(nb: int, num_bins: int, nb_pad: int,
     return torch.as_tensor(_bin_block_rows(nb, num_bins, nb_pad), device=device)
 
 
+def _check_gmax(gmax: torch.Tensor, device: torch.device) -> None:
+    if gmax.device != device or gmax.dtype != torch.float32 or gmax.numel() != 1:
+        raise ValueError(f"gmax must be one float32 on {device}")
+
+
 def _check_phase2_operands(p: torch.Tensor, gmax: torch.Tensor, nb: int,
                            db_dtype: torch.dtype, int_dtype: torch.dtype,
                            col_tile: int) -> None:
     """What K3 and K4b both take."""
     _lib.check_operand("p", p, p.device, torch.float32)
-    if gmax.device != p.device or gmax.dtype != torch.float32 or gmax.numel() != 1:
-        raise ValueError("gmax must be one float32 on p's device")
+    _check_gmax(gmax, p.device)
     nb_pad, t_pad = p.shape
     if t_pad % col_tile or not 2 <= nb <= nb_pad:
         raise ValueError(f"the dB kernels take t_pad % {col_tile} == 0 and "
@@ -283,9 +321,54 @@ def db_rescale_tiled(p: torch.Tensor, gmax: torch.Tensor, nb: int,
     return db, out
 
 
+def db_rescale_recompute_ref(sig: torch.Tensor, nv: int, a2: torch.Tensor,
+                             gmax: torch.Tensor, nb: int, num_bins: int,
+                             t_pad: int, int_dtype: torch.dtype
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5b: :func:`psd_phase1_ref`'s PSD, then
+    :func:`db_rescale_ref` with a float32 dB map."""
+    p = psd_phase1_ref(sig, nv, a2, a2.shape[0] // 2, t_pad)[0]
+    return db_rescale_ref(p, gmax, nb, num_bins, torch.float32, int_dtype)
+
+
+def db_rescale_recompute(sig: torch.Tensor, nv: int, a2: torch.Tensor,
+                         gmax: torch.Tensor, nb: int, num_bins: int,
+                         t_pad: int, int_dtype: torch.dtype
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5b. CPU tensors: the plain version; CUDA tensors: the kernel.
+
+    sig, nv, a2, t_pad as :func:`psd_phase1`; gmax: one float32 on sig's
+    device. Returns (db [nb_pad, t_pad] float32, intensity [num_bins,
+    t_pad] int_dtype)."""
+    if sig.device.type == "cpu":
+        return db_rescale_recompute_ref(sig, nv, a2, gmax, nb, num_bins, t_pad,
+                                        int_dtype)
+    lib = _lib.load_kernels()
+    nb_pad = a2.shape[0] // 2
+    _check_untiled(nb_pad)
+    _check_phase1_operands(sig, a2, nb_pad, t_pad)
+    _check_gmax(gmax, sig.device)
+    if not 2 <= nb <= nb_pad or int_dtype not in _DTYPE_CODE:
+        raise ValueError(f"K5b takes 2 ≤ nb ≤ nb_pad and intensity in "
+                         f"{list(_DTYPE_CODE)}; got nb {nb}, nb_pad {nb_pad}, "
+                         f"{int_dtype}")
+    i0, w0, w1 = _gather_tables(nb, num_bins, sig.device)
+    db = torch.empty((nb_pad, t_pad), dtype=torch.float32, device=sig.device)
+    out = torch.empty((num_bins, t_pad), dtype=int_dtype, device=sig.device)
+    gmax = gmax.reshape(1).contiguous()
+    stream = torch.cuda.current_stream(sig.device).cuda_stream
+    rc = lib.db_rescale_recompute_launch(
+        sig.data_ptr(), sig.shape[0], a2.data_ptr(), nb_pad, nv,
+        gmax.data_ptr(), i0.data_ptr(), w0.data_ptr(), w1.data_ptr(), t_pad,
+        num_bins, db.data_ptr(), out.data_ptr(), _DTYPE_CODE[int_dtype],
+        LN10_INV_20, DB_FLOOR, INT8_DB_RANGE[0], INT8_SCALE, stream)
+    _lib.check_launch("db_rescale_recompute", rc)
+    return db, out
+
+
 def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
                 num_bins: int = 1024, intensity_dtype=torch.float32,
-                db_store_dtype=torch.float32):
+                db_store_dtype=torch.float32, recompute: bool = False):
     """Full spectrogram export of a packed |slow-time| signal, hop 1.
 
     sig: [L] float32 magnitude signal (zeros past ``valid_len``).
@@ -293,6 +376,12 @@ def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
     T = L − W + 1 columns; columns ≥ valid_len − W + 1 are zero (psd),
     DB_FLOOR (db) and the floor column through the interpolation
     (intensity). nb_pad ≤ UNTILED_MAX_BINS runs K2/K3, larger K4a/K4b.
+
+    recompute: True runs K5a/K5b, which never store the PSD: the psd slot
+    is None, and db and intensity are bit-equal to K2/K3's. As in the JAX
+    package it takes a float32 dB map only, and nb_pad ≤ UNTILED_MAX_BINS
+    (the port's untiled domain: every power-of-two nfft up to 512);
+    anything else raises ValueError.
     """
     if op.hop != 1:
         raise ValueError("the fused spectrogram export supports hop=1 only")
@@ -305,11 +394,24 @@ def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
     nb_pad = -(-nb // align) * align
     t_pad = -(-t // PSD_TILE) * PSD_TILE
     a2 = torch.as_tensor(_folded_operator(op, align=align), device=sig.device)
+    nv = valid_len - wl + 1
+    if recompute:
+        if db_store_dtype == torch.bfloat16:
+            raise ValueError("recompute=True stores the dB map in float32 "
+                             "only (it never stores the PSD either)")
+        if nb_pad > UNTILED_MAX_BINS:
+            raise ValueError(
+                f"recompute=True is the untiled formulation (nb_pad ≤ "
+                f"{UNTILED_MAX_BINS}), got nb_pad {nb_pad} at nfft {op.nfft}")
+        gmax = psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
+        db, intensity = db_rescale_recompute(sig, nv, a2, gmax, nb, num_bins,
+                                             t_pad, intensity_dtype)
+        return None, db[:nb, :t], intensity[:, :t]
     if nb_pad <= UNTILED_MAX_BINS:
         phase1, phase2 = psd_phase1, db_rescale
     else:
         phase1, phase2 = psd_phase1_tiled, db_rescale_tiled
-    p, tmax = phase1(sig, valid_len - wl + 1, a2, nb_pad, t_pad)
+    p, tmax = phase1(sig, nv, a2, nb_pad, t_pad)
     gmax = tmax.amax()  # stays on the device: no host sync between phases
     db, intensity = phase2(p, gmax, nb, num_bins, db_store_dtype,
                            intensity_dtype)

@@ -99,10 +99,16 @@ class ActivityBatchOutput:
 
 
 class RadarPipeline:
-    """The recording pipeline for a fixed RadarConfig on one device."""
+    """The recording pipeline for a fixed RadarConfig on one device.
+
+    impl: the frame chain's formulation (pipeline/frame_chain.py): "auto"
+    (the profile chain, K1), "pallas" (the materializing chain, K6 + K7),
+    or the JAX names of the profile chain, "pallas_profile" and
+    "pallas_profile_high".
+    """
 
     def __init__(self, cfg: RadarConfig, filename: str = "radar_data",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", impl: str = "auto"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -114,7 +120,7 @@ class RadarPipeline:
         pin_f32_matmul()
         self.cfg = cfg
         self.filename = filename
-        self._chain = make_frame_chain(cfg, self.device)
+        self._chain = make_frame_chain(cfg, self.device, impl=impl)
 
     def _device_inputs(self, raw: np.ndarray, calib: np.ndarray):
         """raw as flat pair rows [F, PN, 2·NTS] and calib as a pair

@@ -1,6 +1,6 @@
-"""PyTorch port: the kernel modules (K1, K2, K3; K4 in test_torch_fidelity.py)
-vs the JAX package's Pallas kernels, run in interpret mode on the CPU as the
-JAX tests run them.
+"""PyTorch port: the kernel modules (K1, K2, K3; K4 in test_torch_fidelity.py;
+K5, K6, K7 in test_torch_materialize.py) vs the JAX package's Pallas
+kernels, run in interpret mode on the CPU as the JAX tests run them.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; these
 tests hold those plain versions to the Pallas kernels with the tolerances
@@ -20,12 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig
+from fmcw_radar_processing_tpu.config import (
+    AlgorithmConfig,
+    RadarConfig,
+    default_device_config,
+)
 from fmcw_radar_processing_tpu.dsp.stft import StftOperator as JStftOperator
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator
 from fmcw_radar_processing_tpu_torch.ops import _lib
+from fmcw_radar_processing_tpu_torch.ops import detect_cuda as dtc
 from fmcw_radar_processing_tpu_torch.ops import fast_time_cuda as ftc
 from fmcw_radar_processing_tpu_torch.ops import stft_cuda as stc
+from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
 from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
 
 from .test_pipeline import _mixed_recording, _tpu_layout
@@ -264,6 +270,15 @@ class _StubKernels:
         return launch
 
 
+def _stub_library(monkeypatch):
+    stub = _StubKernels()
+    monkeypatch.setattr(_lib, "load_kernels", lambda: stub)
+    monkeypatch.setattr(_lib, "check_operand", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return stub
+
+
 @pytest.mark.parametrize("nfft,db_dtype,tiled", [
     (256, torch.float32, False),
     (512, torch.bfloat16, False),  # nb_pad 272: the untiled ceiling
@@ -275,11 +290,7 @@ def test_spectrogram_dispatch_on_device_tensors(monkeypatch, nfft, db_dtype,
                                                 tiled):
     """A device tensor goes to K2/K3 up to nb_pad 272 and to K4a/K4b above,
     never to the plain versions; each launch is counted once."""
-    stub = _StubKernels()
-    monkeypatch.setattr(_lib, "load_kernels", lambda: stub)
-    monkeypatch.setattr(_lib, "check_operand", lambda *args: None)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    stub = _stub_library(monkeypatch)
     monkeypatch.setattr(stc, "psd_phase1_ref", _fail_if_called)
     monkeypatch.setattr(stc, "db_rescale_ref", _fail_if_called)
     launches = dict(_lib.LAUNCHES)
@@ -356,6 +367,126 @@ def test_kernel_build_failure_names_the_source(monkeypatch, tmp_path):
         _lib._build(target)
     assert not target.exists()
     assert "error: broken" in target.with_suffix(".log").read_text()
+
+
+def test_new_wrappers_raise_without_kernel_library(monkeypatch, tmp_path):
+    """K5a, K5b, K6 and K7 on a non-CPU tensor: the loader raises without
+    nvcc, and the plain versions are never called."""
+    monkeypatch.setattr(_lib, "_lib", None)
+    monkeypatch.setattr(_lib, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_lib, "library_path",
+                        lambda: tmp_path / "libmissing.so")
+    monkeypatch.setattr(ftc, "fast_time_ref", _fail_if_called)
+    monkeypatch.setattr(dtc, "search_peaks_fused_ref", _fail_if_called)
+    monkeypatch.setattr(stc, "psd_tmax_ref", _fail_if_called)
+    monkeypatch.setattr(stc, "db_rescale_recompute_ref", _fail_if_called)
+    launches = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    with pytest.raises(_lib.KernelBuildError, match="nvcc"):
+        ftc.fast_time(torch.empty(32, 128, **meta),
+                      torch.empty(128, 512, **meta), torch.empty(512, **meta), 16)
+    cfg = RadarConfig.create(default_device_config())
+    with pytest.raises(_lib.KernelBuildError):
+        dtc.search_peaks_fused(torch.empty(4, 256, **meta), cfg)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.psd_tmax(torch.empty(2000, **meta), 1981,
+                     torch.empty(272, 20, **meta), 136, 2048)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.db_rescale_recompute(torch.empty(2000, **meta), 1981,
+                                 torch.empty(272, 20, **meta),
+                                 torch.empty((), **meta), 129, 1024, 2048,
+                                 torch.float32)
+    assert _lib.LAUNCHES == launches
+
+
+def _launch_deltas(before):
+    return {k: _lib.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("f", [12, 9])
+def test_fast_time_dispatch_on_device_tensors(monkeypatch, f):
+    """K6 on a device tensor: one fast_time launch (rows, K), rf [F, PN, K,
+    2] and profile [F, K] allocated for it, never the plain version."""
+    stub = _stub_library(monkeypatch)
+    monkeypatch.setattr(ftc, "fast_time_ref", _fail_if_called)
+    before = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    rf, prof = ftc.fast_time(torch.empty(f * 16, 128, **meta),
+                             torch.empty(128, 512, **meta),
+                             torch.empty(512, **meta), 16)
+    assert rf.shape == (f, 16, 256, 2) and prof.shape == (f, 256)
+    assert [(n, a[5:7]) for n, a in stub.calls] == [("fast_time_launch",
+                                                     (f * 16, 256))]
+    assert _launch_deltas(before) == {k: int(k == "fast_time") for k in before}
+
+
+@pytest.mark.parametrize("targets", [1, 3])
+def test_search_peaks_fused_dispatch_on_device_tensors(monkeypatch, targets):
+    """K7 on a device tensor: one launch with the float32 threshold, frames,
+    K and T; [F, T] outputs; a K the kernel is not built for raises first."""
+    stub = _stub_library(monkeypatch)
+    monkeypatch.setattr(dtc, "search_peaks_fused_ref", _fail_if_called)
+    cfg = RadarConfig.create(default_device_config(),
+                             AlgorithmConfig(max_num_targets=targets))
+    before = dict(_lib.LAUNCHES)
+    det = dtc.search_peaks_fused(torch.empty(100, 256, device="meta"), cfg)
+    assert det.idx.shape == det.magnitude.shape == det.valid.shape == (100, targets)
+    assert (det.idx.dtype, det.valid.dtype) == (torch.int32, torch.bool)
+    (name, args), = stub.calls
+    assert name == "search_peaks_launch" and args[2:6] == (200.0, 100, 256, targets)
+    with pytest.raises(ValueError, match="K in"):
+        dtc.search_peaks_fused(torch.empty(100, 200, device="meta"), cfg)
+    assert len(stub.calls) == 1
+    assert _launch_deltas(before) == {
+        k: int(k == "search_peaks_fused") for k in before}
+
+
+@pytest.mark.parametrize("nfft", [256, 512])
+def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft):
+    """recompute=True on a device tensor: K5a then K5b, each counted once,
+    psd None, a float32 dB map; K2/K3 and the plain versions untouched."""
+    stub = _stub_library(monkeypatch)
+    for name in ("psd_phase1_ref", "db_rescale_ref", "psd_tmax_ref",
+                 "db_rescale_recompute_ref"):
+        monkeypatch.setattr(stc, name, _fail_if_called)
+    before = dict(_lib.LAUNCHES)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    p, db, intensity = stc.spectrogram(torch.empty(3000, device="meta"), 2500,
+                                       op, intensity_dtype=torch.int8,
+                                       recompute=True)
+    assert p is None and db.dtype == torch.float32
+    assert db.shape == (op.num_bins, 2981) and intensity.shape == (1024, 2981)
+    assert [n for n, _ in stub.calls] == ["psd_tmax_launch",
+                                          "db_rescale_recompute_launch"]
+    nb_pad = -(-op.num_bins // 8) * 8
+    assert stub.calls[0][1][3] == nb_pad and stub.calls[1][1][3] == nb_pad
+    assert _launch_deltas(before) == {
+        k: int(k in ("psd_tmax", "db_rescale_recompute")) for k in before}
+
+
+def test_declared_launch_symbols_are_defined_once_in_the_sources():
+    """Every C entry point the loader declares is defined in exactly one of
+    the sources the build compiles."""
+    import re
+
+    class Recorder:
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    declared = Recorder()
+    _lib._declare(declared)
+    symbols = set(vars(declared))
+    assert {"fast_time_launch", "search_peaks_launch", "psd_tmax_launch",
+            "db_rescale_recompute_launch"} <= symbols
+    defined: dict[str, int] = {}
+    for src in _lib.SOURCES:
+        text = (_lib.CSRC / src).read_text()
+        for name in re.findall(r'extern "C" int (\w+)\(', text):
+            defined[name] = defined.get(name, 0) + 1
+    assert {n: defined.get(n, 0) for n in symbols} == {n: 1 for n in symbols}
 
 
 # --- (j) CUDA kernels vs plain versions (need a card) ----------------------
@@ -476,3 +607,109 @@ def test_k4_kernels_equal_k2_k3_at_small_nfft(cuda_device, db_dtype):
     torch.cuda.synchronize()
     for i in (0, 2, 3, 4):  # p, gmax, db, intensity
         assert torch.equal(tiled[i], untiled[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [12, 9, 1001])  # 9, 1001: not whole row tiles
+def test_k6_kernel_matches_plain(cfg, cuda_device, f):
+    """rf and profile vs the plain version (rtol 1e-5 / atol 1e-2); the
+    profile bit-equal to K1's."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(4), f=f)
+    w, off, x = _k1_port(cfg, raw, calib, cuda_device)
+    before = _lib.LAUNCHES["fast_time"]
+    rf, prof = ftc.fast_time(x, w, off, cfg.pn)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fast_time"] == before + 1
+    rf_ref, prof_ref = ftc.fast_time_ref(x, w, off, cfg.pn)
+    torch.testing.assert_close(rf, rf_ref, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(prof, prof_ref, rtol=1e-5, atol=1e-2)
+    assert torch.equal(prof, ftc.fast_time_profile(x, w, off, cfg.pn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("targets", [1, 3])
+def test_k7_kernel_matches_plain(cuda_device, targets):
+    """idx, magnitude and valid exactly equal to the plain version, invalid
+    slots included, on a recording's profile and on hand-made rows with
+    plateaus, ties, threshold-equal and gate-edge values."""
+    cfg = RadarConfig.create(default_device_config(),
+                             AlgorithmConfig(max_num_targets=targets))
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(5), f=300)
+    w, off, x = _k1_port(cfg, raw, calib, cuda_device)
+    prof = ftc.fast_time_profile(x, w, off, cfg.pn)
+    hand = torch.zeros(5, cfg.range_fft_size, device=cuda_device)
+    hand[0, 40:43] = 600.0
+    hand[0, 80] = 600.0
+    hand[1, 50] = 200.0
+    hand[2, 0] = 900.0
+    hand[3] = 400.0
+    prof = torch.cat([prof, hand])
+    before = _lib.LAUNCHES["search_peaks_fused"]
+    got = dtc.search_peaks_fused(prof, cfg)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["search_peaks_fused"] == before + 1
+    want = dtc.search_peaks_fused_ref(prof, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got.valid.any() and not got.valid.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nfft,l,count", [(256, 70_000, 69_000), (512, 4096, 3000)])
+def test_k5_kernels_equal_k2_k3(cuda_device, int_dtype, nfft, l, count):
+    """K5a's tmax bit-equal to K2's and K5b's db and intensity to K3's
+    (float32 dB map); each within K2/K3's bounds of its plain version."""
+    sig = torch.as_tensor(_signal(l, count), device=cuda_device)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    a2, p, tmax, gmax, db, out = _k4_run(sig, count, op, torch.float32,
+                                         int_dtype, tiled=False)
+    nb_pad, t_pad = p.shape
+    before = dict(_lib.LAUNCHES)
+    tmax_r = stc.psd_tmax(sig, count - 19, a2, nb_pad, t_pad)
+    db_r, out_r = stc.db_rescale_recompute(sig, count - 19, a2, tmax_r.amax(),
+                                           op.num_bins, 1024, t_pad, int_dtype)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["psd_tmax"] == before["psd_tmax"] + 1
+    assert _lib.LAUNCHES["db_rescale_recompute"] == before["db_rescale_recompute"] + 1
+    assert torch.equal(tmax_r, tmax)
+    assert torch.equal(db_r, db) and torch.equal(out_r, out)
+    torch.testing.assert_close(tmax_r, stc.psd_tmax_ref(sig, count - 19, a2,
+                                                        nb_pad, t_pad),
+                               rtol=1e-5, atol=0.0)
+    db_ref, out_ref = stc.db_rescale_recompute_ref(sig, count - 19, a2, gmax,
+                                                   op.num_bins, 1024, t_pad,
+                                                   int_dtype)
+    assert torch.equal(db_r == DB_FLOOR, db_ref == DB_FLOOR)
+    m = db_ref > -120
+    torch.testing.assert_close(db_r[m], db_ref[m], rtol=0, atol=1e-3)
+    if int_dtype == torch.int8:
+        assert (out_r.int() - out_ref.int()).abs().max() <= 1
+    else:
+        mi = out_ref.float() > -120
+        torch.testing.assert_close(out_r.float()[mi], out_ref.float()[mi], rtol=0,
+                                   atol=2e-3 if int_dtype == torch.float32 else 0.5)
+
+
+@pytest.mark.cuda
+def test_pallas_chain_on_card_matches_cpu(cfg, cuda_device):
+    """make_frame_chain(impl="pallas", return_range_fft=True) on the card
+    against the CPU plain path: detections and ranges exact, the waterfall
+    within rtol 1e-5 / atol 1e-2, the cube and the strongest chirps within
+    the JAX package's bound between two summation orders, rtol 1e-5 / atol
+    1e-5·max|rf| (tests/test_fused_chain.py:73-90)."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(6), f=64)
+    outs = [make_frame_chain(cfg, dev, return_range_fft=True, impl="pallas")(
+                torch.as_tensor(raw, device=dev), torch.as_tensor(calib, device=dev))
+            for dev in (cuda_device, "cpu")]
+    got, want = outs
+    assert torch.equal(got.detection.idx.cpu(), want.detection.idx)
+    assert torch.equal(got.detected.cpu(), want.detected)
+    assert np.array_equal(got.range.cpu().numpy(), want.range.numpy(),
+                          equal_nan=True)
+    torch.testing.assert_close(got.waterfall.cpu(), want.waterfall, rtol=1e-5,
+                               atol=1e-2)
+    scale = float(want.range_fft.abs().max())
+    for name in ("range_fft", "strongest_chirps"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                                   rtol=1e-5, atol=1e-5 * scale)
