@@ -16,8 +16,15 @@ with impl "pallas" (K6, K7, K2, K3), the recompute export
 ``spectrogram(recompute=True)`` on that run's packed signal (K5a, K5b,
 bit-equal to K2/K3), and the fidelity profile on a 1,024-frame recording
 (K1, K4a, K4b), checking the detections against the injected targets.
-Last, the service answers production and default-profile requests,
-full-recording ("no") and activity ("yes"). It prints a kernel table and a
+The service answers production and default-profile requests,
+full-recording ("no") and activity ("yes"). Then the persistent service
+path at full size: [stream] the streaming processor at bench.py's
+5_streaming_8ch shape (production, 8 channels, 256-frame windows, K1
+counted), against the CPU plain path and its own window split, timed per
+window; [classify] VGG16 at 224×224×3 from seeded weights, bf16 against
+float32, timed at batch 1, 8 and 64; [service] the HTTP service with that
+classifier: /process, the dashboard's manifest, /classify alone, eight at
+once (coalesced) and at 1, 8 and 64 images. It prints a kernel table and a
 device line as JSON. Any failed check raises, so the exit code is
 non-zero. There is no CPU path: without a CUDA device it exits at once.
 """
@@ -42,6 +49,13 @@ SEED = 20261016
 MUTED_SHARE = 0.10
 REPS = 11
 WIDE_REPS = 5  # timing runs at the 65,536-column, nfft 65,536 shape
+# [stream]: bench.py's 5_streaming_8ch (production profile, nfft 256).
+STREAM_CHANNELS = 8
+STREAM_WINDOW = 256  # frames per window and channel
+STREAM_WINDOWS = 4  # windows of the 1,024-frame recording
+STREAM_TIMED = 20  # timed steady-state windows per mode and input
+VGG_SHAPE = (224, 224, 3)
+VGG_BATCHES = (1, 8, 64)
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,6 +199,356 @@ def serve_yes(svc, work: str, detected: np.ndarray, pn: int, what: str) -> None:
               f"{what}: {name} intensity finite, shape (1024, {n_valid})")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def count_syncs(fn) -> int:
+    """Host synchronizations ``fn`` makes, as torch's sync debug mode
+    reports them (a prototype: it may miss some)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
+                 window=STREAM_WINDOW, windows=STREAM_WINDOWS,
+                 timed=STREAM_TIMED) -> dict:
+    """[stream] The streaming processor at bench.py's 5_streaming_8ch shape
+    (production profile, 8 channels, 256-frame windows, nfft 256), fed 4
+    windows of a 1,024-frame recording per channel: counted launches, the
+    first window against the CPU plain path, window-split invariance,
+    injected targets, and the steady-state window latency."""
+    from fmcw_radar_processing_tpu_torch import SyntheticTarget, synthesize_recording
+    from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR
+    from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
+    from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+
+    print(f"[stream] card: {card_line()}")
+    frames = window * windows
+    rng = np.random.default_rng(SEED + 3)
+    raws, cals, present, want_rng, want_spd = [], [], [], [], []
+    step = np.float32(-cfg.derived.fd_per_bin * cfg.derived.hz_to_mps)
+    for c in range(channels):
+        tgt = SyntheticTarget(range_m=4.5 + 1.6 * c,
+                              doppler_bin_offset=(3, -2, 1, -4, 2, -1, 4, -3)[c % 8],
+                              amplitude=4.0)
+        pres = rng.random(frames) >= MUTED_SHARE
+        rec = synthesize_recording(cfg, frames, (tgt,), seed=SEED + 10 + c,
+                                   target_present=pres)
+        raws.append(to_pair(rec.rx1()).reshape(frames, cfg.pn, 2 * cfg.nts))
+        cals.append(to_pair(rec.calib_vector(0, cfg.nts)))
+        present.append(pres)
+        want_rng.append(np.float32(tgt.range_bin(cfg))
+                        * np.float32(cfg.derived.dist_per_bin))
+        want_spd.append(np.float32(tgt.doppler_bin_offset) * step)
+    raw, cal, present = np.stack(raws), np.stack(cals), np.stack(present)
+
+    # The path, counted: 4 windows × 8 channels from host arrays.
+    sp = StreamingProcessor(cfg, channels, window, dev)
+    torch.cuda.synchronize()
+    lib.reset_launches()
+    got = [sp.process_window(raw[:, i * window:(i + 1) * window], cal)
+           for i in range(windows)]
+    torch.cuda.synchronize()
+    launches = dict(lib.LAUNCHES)
+    print(f"[stream] launches over {windows} windows of {channels} channels: "
+          f"{launches}")
+    check(launches["fast_time_profile"] == channels * windows,
+          f"K1 launched once per channel and window ({channels * windows})")
+    check(sum(launches.values()) == launches["fast_time_profile"],
+          "only K1 on the streaming path")
+
+    # Detections, ranges and speeds against the injected targets.
+    n_det = 0
+    for i, r in enumerate(got):
+        sl = slice(i * window, (i + 1) * window)
+        det = r.detected.cpu().numpy()
+        check(np.array_equal(det, present[:, sl]), f"window {i}: detected frames")
+        rg, sd = r.range.cpu().numpy()[:, 0], r.speed.cpu().numpy()[:, 0]
+        for c in range(channels):
+            check(np.all(rg[c, det[c]] == want_rng[c])
+                  and np.all(np.isnan(rg[c, ~det[c]]))
+                  and np.all(sd[c, det[c]] == want_spd[c]),
+                  f"window {i} channel {c}: range {want_rng[c]} m, speed "
+                  f"{want_spd[c]} m/s")
+        n_det += int(det.sum())
+    # Seamless columns: over the windows, Σ valid samples − (W − 1) each.
+    cols = sum(r.col_count.cpu().numpy().astype(np.int64) for r in got)
+    check(np.array_equal(cols, present.sum(1) * cfg.pn - 19),
+          "columns per channel = detected samples - 19")
+    print(f"[stream] ranges and speeds equal the injected targets in all "
+          f"{n_det} detected frames of {channels * frames}")
+
+    # The first window against the port's CPU plain path on the same input.
+    want = StreamingProcessor(cfg, channels, window, "cpu").process_window(
+        raw[:, :window], cal)
+    g0 = got[0]
+    check(torch.equal(g0.detected.cpu(), want.detected)
+          and torch.equal(g0.col_count.cpu(), want.col_count), "first window: "
+          "detected, col_count exact")
+    check(torch.allclose(g0.waterfall.cpu(), want.waterfall, rtol=1e-5, atol=1e-2),
+          "first window: waterfall rtol 1e-5 / atol 1e-2")
+    for name, atol in (("range", 0.0), ("speed", 1e-7)):
+        a, b = getattr(g0, name).cpu(), getattr(want, name)
+        check(torch.equal(a.isnan(), b.isnan())
+              and torch.allclose(a, b, rtol=1e-6, atol=atol, equal_nan=True),
+              f"first window: {name} rtol 1e-6")
+    p, pw = g0.psd.cpu(), want.psd
+    scale = pw.amax(dim=(-2, -1), keepdim=True)
+    psd_err = float(((p - pw).abs() / scale).max())
+    check(psd_err <= 1e-4, "first window: psd within 1e-4 of the max")
+    db, dbw = g0.psd_db.cpu(), want.psd_db
+    check(torch.equal(db == DB_FLOOR, dbw == DB_FLOOR), "first window: floors")
+    db_err = {lvl: float((db - dbw).abs()[dbw > lvl].max()) for lvl in (-100, -120)}
+    check(db_err[-100] <= 1e-3 and db_err[-120] <= 2e-3,
+          "first window: psd_db within 1e-3 dB above -100 dB, 2e-3 above -120")
+    for name in ("norm_power", "carry"):
+        check(torch.allclose(getattr(g0, name).cpu(), getattr(want, name),
+                             rtol=1e-5, atol=0), f"first window: {name} rtol 1e-5")
+    print(f"[stream] first window on cuda = the CPU plain path: psd max err "
+          f"{psd_err:.3g} of the max (tol 1e-4), psd_db {db_err[-100]:.3g} dB "
+          f"above -100 dB (tol 1e-3), {db_err[-120]:.3g} above -120 (tol 2e-3)")
+
+    # Window-split invariance on the card: 4 × 256 against 1 × 1,024 frames.
+    full = StreamingProcessor(cfg, 1, frames, dev).process_window(raw[:1], cal[:1])
+    n = [int(r.col_count[0]) for r in got]
+    n_full = int(full.col_count[0])
+    check(sum(n) == n_full, f"split columns {n} sum to {n_full}")
+    split = torch.cat([r.psd[0, :, :k] for r, k in zip(got, n)], dim=1)
+    whole = full.psd[0, :, :n_full]
+    split_err = float(((split - whole).abs() / whole.max()).max())
+    check(split_err <= 1e-5, "split columns equal the one-window columns "
+          "(within 1e-5 of the max)")
+    print(f"[stream] window split 4×{window} vs 1×{frames} on channel 0: "
+          f"{n_full} columns, max err {split_err:.3g} of the max (tol 1e-5)")
+
+    # Host synchronizations per window, inputs on the host and on the card.
+    raw_d = torch.as_tensor(raw[:, :window], device=dev)
+    cal_d = torch.as_tensor(cal, device=dev)
+    syncs_dev = count_syncs(lambda: sp.process_window(raw_d, cal_d))
+    syncs_host = count_syncs(lambda: sp.process_window(raw[:, :window], cal))
+    print(f"[stream] host syncs per window: {syncs_dev} with inputs on the "
+          f"card, {syncs_host} with host NumPy inputs")
+
+    out = {"launches_per_window": launches["fast_time_profile"] // windows,
+           "syncs_device_inputs": syncs_dev, "syncs_host_inputs": syncs_host}
+    for mode in ("per_window", "running_max"):
+        proc = StreamingProcessor(cfg, channels, window, dev, db_mode=mode)
+        for src in ("host", "device"):
+            inputs = [((raw[:, i * window:(i + 1) * window], cal) if src == "host"
+                       else (torch.as_tensor(raw[:, i * window:(i + 1) * window],
+                                             device=dev), cal_d))
+                      for i in range(windows)]
+            ms = []
+            for k in range(timed + 3):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                proc.process_window(*inputs[k % windows])
+                stop.record()
+                stop.synchronize()
+                if k >= 3:  # the first windows warm the caches
+                    ms.append(start.elapsed_time(stop))
+            med = statistics.median(ms)
+            fps = channels * window / (med / 1e3)
+            out[f"{mode}_{src}_ms"] = med
+            print(f"[stream] {mode}, inputs on the {src}: window latency median "
+                  f"{med:.4f} ms (min {min(ms):.4f}, max {max(ms):.4f}, "
+                  f"{len(ms)} windows) = {fps:,.0f} frames/s "
+                  f"({channels} ch × {window} frames)")
+    return out
+
+
+def classify_phase(dev, tmp: str, shape=VGG_SHAPE, batches=VGG_BATCHES) -> dict:
+    """[classify] VGG16 (the repo's: 13 convolutions of 64-512 channels,
+    the 256-wide binary head) at 224×224×3 with Flax's default
+    initialization from a seeded generator on the card: the artifact round
+    trip, bf16 against float32 (TF32 off), a lone image against the same
+    image in a padded bucket, and the forward's time at batch 1, 8, 64."""
+    from fmcw_radar_processing_tpu_torch.models.infer import (
+        SpectrogramClassifier,
+        export_classifier,
+    )
+    from fmcw_radar_processing_tpu_torch.models.params import state_dict_to_flax
+    from fmcw_radar_processing_tpu_torch.models.vgg import (
+        build_model,
+        init_flax_default_,
+    )
+
+    print(f"[classify] card: {card_line()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = init_flax_default_(build_model("vgg16", shape, dtype=torch.float32,
+                                         device=dev), gen)
+    n_params = sum(p.numel() for p in f32.parameters())
+    t0 = time.perf_counter()
+    art = export_classifier(os.path.join(tmp, "vgg16"), "vgg16",
+                            state_dict_to_flax(f32.state_dict()), shape,
+                            ("calf", "human"))
+    clf = SpectrogramClassifier.load(art, dev)
+    size = os.path.getsize(os.path.join(art, "params.npz"))
+    print(f"[classify] VGG16 {n_params:,} parameters ({size / 1e6:.1f} MB "
+          f"params.npz) exported and loaded in {time.perf_counter() - t0:.2f} s")
+    ref_state = f32.state_dict()
+    for k, v in clf.model.state_dict().items():
+        check(torch.equal(v, ref_state[k]), f"artifact round trip: {k}")
+
+    x = np.random.default_rng(SEED + 4).uniform(
+        0, 1, (max(batches), *shape)).astype(np.float32)
+    xd = torch.as_tensor(x, device=dev)
+    with torch.inference_mode():
+        l32 = f32(xd[:8]).float()
+        l16 = clf.model(xd[:8]).float()
+        # The last Dense's terms |w_i·h_i|: logits of random weights are
+        # small sums of larger terms, so the bound scales with the terms.
+        feats = f32.backbone(xd[:8].permute(0, 3, 1, 2))
+        h = torch.relu(f32.head.fc(feats.permute(0, 2, 3, 1).flatten(1)))
+        terms = float((h * f32.head.out.weight[0]).abs().sum(1).max())
+    err = float((l16 - l32).abs().max())
+    bound = 5e-2 * terms
+    same = int(((l16 > 0) == (l32 > 0)).sum())
+    print(f"[classify] batch 8 logits, bf16 vs float32 (TF32 off): max |Δlogit| "
+          f"{err:.4g} (bound 5e-2·max Σ|w·h| of the last Dense = {bound:.4g}; "
+          f"max|logit| {float(l32.abs().max()):.4g}); same sign on {same}/8")
+    check(err <= bound, "bf16 logits within 5e-2·Σ|w·h| of float32")
+    del f32, ref_state, feats, h
+    torch.cuda.empty_cache()
+
+    p1 = clf.predict_proba(x[:1])
+    p5 = clf.predict_proba(x[:5])  # bucket 8, three padded rows
+    d = float(abs(p1[0] - p5[0]))
+    print(f"[classify] a lone image vs the same image in a padded bucket of 8: "
+          f"|Δp| {d:.3g} (tol 2e-3)")
+    check(d <= 2e-3, "batch 1 = the same image inside a padded bucket")
+
+    def forward(b):
+        def run():
+            with torch.inference_mode():
+                clf.model(xd[:b])
+        return run
+
+    times = time_turns({b: forward(b) for b in batches})
+    for b, ms in times.items():
+        print(f"[classify] VGG16 bf16 forward at batch {b}: {ms:.4f} ms "
+              f"({b / (ms / 1e3):,.0f} images/s; CUDA events, median of {REPS})")
+    return {"artifact": art, "params": n_params, "forward_ms": times,
+            "bf16_err": err}
+
+
+def service_phase(dev, tmp: str, small, artifact: str, reps: int = 3) -> dict:
+    """[service] RadarHttpService on 127.0.0.1 with the VGG16 artifact:
+    /process "no" (fidelity) and "yes", the dashboard's manifest over the
+    payloads, /classify alone and eight at once, and /classify latency at
+    1, 8 and 64 images in one request."""
+    import base64
+    import concurrent.futures
+    import threading
+    import urllib.request
+
+    from fmcw_radar_processing_tpu_torch import LocalStorage, write_recording
+    from fmcw_radar_processing_tpu_torch.serve.dashboard import DashboardServer
+    from fmcw_radar_processing_tpu_torch.serve.handler import HandlerConfig
+    from fmcw_radar_processing_tpu_torch.serve.http_service import RadarHttpService
+
+    def post(url, body: bytes, ctype="application/json"):
+        req = urllib.request.Request(url, data=body, method="POST",
+                                     headers={"Content-Type": ctype})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return json.loads(r.read())
+
+    print(f"[service] card: {card_line()}")
+    blobs, work = os.path.join(tmp, "svc_blobs"), os.path.join(tmp, "svc_work")
+    os.makedirs(work)
+    store = LocalStorage(blobs)
+    xml, bin_ = write_recording(os.path.join(tmp, "svc_radar_data"), small)
+    store.put(xml, "radar_data.xml")
+    store.put(bin_, "radar_data.raw.bin")
+    hc = HandlerConfig(workdir=work, storage_spec=f"local:{blobs}",
+                       pretty_json=False, device=str(dev))
+    check(hc.profile == "fidelity", "the service's default profile is fidelity")
+    out: dict = {}
+    t0 = time.perf_counter()
+    with RadarHttpService(hc, port=0, classifier_artifact=artifact) as srv:
+        out["start_s"] = time.perf_counter() - t0
+        print(f"[service] up at {srv.url} in {out['start_s']:.2f} s (classifier "
+              "loaded and warmed at buckets 1-64)")
+        for flag in ("no", "yes"):
+            st, res, dt = post(srv.url + "process", json.dumps(
+                {"processAnimalActivity": flag}).encode())
+            check(st == 200 and res["status"] == "success", f"/process {flag}: {res}")
+            out[f"process_{flag}_s"] = dt
+            print(f"[service] POST /process {flag!r}: {st} {res['status']} in "
+                  f"{dt:.4f} s; artifacts {res['steps'][1]['artifacts']}")
+        with DashboardServer(work, port=0) as dash:
+            man = get(dash.url + "api/manifest")
+            with urllib.request.urlopen(dash.url + "data/spectrogram.png",
+                                        timeout=60) as r:
+                png = r.read()
+        check(None not in (man["spectrogram"], man["range_fft"], man["range_speed"],
+                           man["fft_snapshot"], man["png"])
+              and len(man["batches"]) == 3 and png.startswith(b"\x89PNG"),
+              f"dashboard manifest: {man}")
+        print(f"[service] dashboard manifest: {man}")
+
+        st, res, dt = post(srv.url + "classify", png, "image/png")
+        check(st == 200 and len(res["predictions"]) == 1, f"/classify: {res}")
+        print(f"[service] POST /classify spectrogram.png: {st} "
+              f"{res['predictions'][0]} in {dt:.4f} s")
+
+        # Eight at once, released together; repeated (at most 3 rounds)
+        # until the dispatcher has coalesced requests into one batch.
+        for rnd in range(3):
+            gate = threading.Barrier(8)
+
+            def one(_):
+                gate.wait(timeout=60)
+                return post(srv.url + "classify", png, "image/png")
+
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                res8 = [f.result(timeout=300) for f in
+                        [ex.submit(one, i) for i in range(8)]]
+            check(all(r[0] == 200 for r in res8), "8 concurrent /classify: 200")
+            batching = get(srv.url + "healthz")["classify_batching"]
+            if batching["max_batch"] > 1:
+                break
+        lat = sorted(r[2] for r in res8)
+        print(f"[service] 8 concurrent /classify (round {rnd + 1}): all 200, "
+              f"latency {lat[0]:.4f}-{lat[-1]:.4f} s; batching {batching}")
+        check(batching["max_batch"] > 1, "concurrent /classify coalesced")
+        out["classify_8_concurrent_s"] = lat
+
+        b64 = base64.b64encode(png).decode()
+        for n in (1, 8, 64):
+            body = json.dumps({"images_b64": [b64] * n}).encode()
+            ts = []
+            for _ in range(reps):
+                st, res, dt = post(srv.url + "classify", body)
+                check(st == 200 and len(res["predictions"]) == n, f"/classify {n}")
+                ts.append(dt)
+            out[f"classify_{n}_s"] = statistics.median(ts)
+            print(f"[service] POST /classify with {n} image(s): median "
+                  f"{out[f'classify_{n}_s']:.4f} s of {reps} (min {min(ts):.4f})")
+        print(f"[service] healthz {get(srv.url + 'healthz')}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
@@ -225,10 +589,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     # 1. The card, the versions, the precision flags.
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    print(card_line())
     pin_f32_matmul()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -802,6 +1163,17 @@ def main() -> int:
         serve_yes(svc, work, detected, cfg.pn, "production activity request")
         print('[serve] default profile: 3/3 "no" and 2/2 "yes" requests '
               'succeeded (3 batch JSONs each); production: 1/1 "yes"')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 8. The persistent service path at full size: the streaming processor,
+    # VGG16 inference, and the HTTP service with /classify and the
+    # dashboard.
+    stream_phase(dev, cfg, _lib)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_svc_")
+    try:
+        clf = classify_phase(dev, tmp)
+        service_phase(dev, tmp, small, clf["artifact"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

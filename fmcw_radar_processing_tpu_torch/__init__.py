@@ -9,8 +9,11 @@ config    not copied — the jax-free ``fmcw_radar_processing_tpu.config``
 dsp       windows, fast-time (range) chain, detection, slow-time, STFT
 ops       hand-written CUDA kernels (sources in ``csrc/``) behind wrappers
           that run the plain PyTorch version for CPU tensors
-pipeline  frame chain, slow-time packing, recording pipeline, payloads, PNG
-serve     service handler and CLI
+pipeline  frame chain, slow-time packing, recording pipeline, streaming
+          multi-channel processor, payloads, PNG
+models    VGG16 / SmallCNN classifiers, Flax weight carrier, inference
+serve     service handler, HTTP service with the /classify batcher,
+          dashboard and CLI
 utils     complex-as-pair helpers, stage timers
 
 The package imports ``torch`` and never ``jax``. From the JAX package it

@@ -11,6 +11,7 @@ is a local maximum of the profile (≥ both neighbours), lies in
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,14 +37,19 @@ def masked_peaks(profile: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
     """The profile [..., K] at its eligible bins — local maxima (≥ both
     neighbours, −inf outside the row) inside the distance gate and above
     range_threshold (compared in float32) — and −inf elsewhere."""
-    neg = torch.tensor(-torch.inf, dtype=profile.dtype, device=profile.device)
     pad = profile.new_full((*profile.shape[:-1], 1), -torch.inf)
     left = torch.cat([pad, profile[..., :-1]], dim=-1)
     right = torch.cat([profile[..., 1:], pad], dim=-1)
-    gate = torch.as_tensor(gate_mask(cfg), device=profile.device)
+    gate = _gate_on(cfg, profile.device)
     eligible = ((profile >= left) & (profile >= right) & gate
                 & (profile > cfg.algorithm.range_threshold))
-    return torch.where(eligible, profile, neg)
+    return torch.where(eligible, profile, -torch.inf)
+
+
+@functools.lru_cache(maxsize=8)
+def _gate_on(cfg: RadarConfig, device: torch.device) -> torch.Tensor:
+    """gate_mask on ``device``, copied from the host once per config."""
+    return torch.as_tensor(gate_mask(cfg), device=device)
 
 
 def search_peaks(profile: torch.Tensor, cfg: RadarConfig) -> DetectionResult:

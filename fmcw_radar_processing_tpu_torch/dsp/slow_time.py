@@ -94,8 +94,8 @@ def doppler_peaks_at(rd_rows: torch.Tensor, cfg: RadarConfig) -> DopplerPeaks:
     val = rows.amax(dim=-1)
     accept = (val >= cfg.algorithm.doppler_threshold) & (dop_idx != zero_bin)
     dop_idx = torch.where(accept, dop_idx, zero_bin).to(torch.int32)
-    step = torch.tensor(-cfg.derived.fd_per_bin * cfg.derived.hz_to_mps,
-                        dtype=torch.float32, device=rd_rows.device)
+    # float32 constants as Python scalars: no host-to-device copy per call.
+    step = float(np.float32(-cfg.derived.fd_per_bin * cfg.derived.hz_to_mps))
     speed = (dop_idx - zero_bin).to(torch.float32) * step
     return DopplerPeaks(doppler_idx=dop_idx, speed=speed)
 
@@ -115,10 +115,8 @@ def measurements(detection: DetectionResult, peaks: DopplerPeaks,
 
     detection/peaks have shape [F, T]; output tensors are [T, F].
     """
-    nan = torch.tensor(torch.nan, dtype=torch.float32,
-                       device=detection.idx.device)
-    dpb = torch.tensor(cfg.derived.dist_per_bin, dtype=torch.float32,
-                       device=detection.idx.device)
+    nan = torch.nan
+    dpb = float(np.float32(cfg.derived.dist_per_bin))
     strength = torch.where(detection.valid, detection.magnitude, nan).T
     rng = torch.where(detection.valid,
                       detection.idx.to(torch.float32) * dpb, nan).T

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +43,13 @@ INT8_SCALE = float(np.float32(1.0 / int8_db_step()))
 """Codes per dB of the int8 emission, as the float32 the kernels use."""
 
 
+class SpectrogramResult(NamedTuple):
+    power: torch.Tensor  # [..., nb, T] float32 linear PSD, invalid columns zeroed
+    frame_valid: torch.Tensor  # [..., T] bool — columns within the valid signal
+    freqs: torch.Tensor  # [nb] float32 one-sided frequency axis (Hz)
+    times: torch.Tensor  # [T] float32 segment-center times (s)
+
+
 def stft_frame_count(length: int, window_length: int, hop: int) -> int:
     """Number of STFT columns for a length-L signal (MATLAB fix((L−o)/(w−o)))."""
     if length < window_length:
@@ -60,6 +68,10 @@ class StftOperator:
     hop: int
     fs: float
     scale: float  # 1 / (fs · Σw²)
+    # Per-device copies of the stacked operator and the doubling vector,
+    # made once so that a call copies nothing from the host.
+    _on_device: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False, compare=False, hash=False)
 
     @classmethod
     def create(cls, *, window_length: int = 20, beta: float = 3.0, nfft: int,
@@ -88,6 +100,54 @@ class StftOperator:
         view, no copy)."""
         return x.unfold(-1, self.window_length, self.hop).transpose(-1, -2)
 
+    def _device_operator(self, device: torch.device):
+        """(A2 = [a_re; a_im] [2·nb, W], one-sided doubling [nb, 1]) on
+        ``device``."""
+        if device not in self._on_device:
+            dbl = np.full((self.num_bins, 1), 2.0, np.float32)
+            dbl[0] = 1.0
+            if self.nfft % 2 == 0:
+                dbl[-1] = 1.0
+            a2 = np.concatenate([self.a_re, self.a_im], axis=0)
+            self._on_device[device] = (torch.as_tensor(a2, device=device),
+                                       torch.as_tensor(dbl, device=device))
+        return self._on_device[device]
+
+    def __call__(self, x: torch.Tensor,
+                 valid_len: torch.Tensor | int | None = None) -> SpectrogramResult:
+        """One-sided PSD spectrogram of a real signal (the JAX package's
+        ``StftOperator.__call__``), by one stacked float32 product.
+
+        x: [..., L] float32 (|·| of the slow-time signal), L ≥ W.
+        valid_len: optional count of valid samples, scalar or one per
+          leading index; columns reaching past it are zeroed.
+        """
+        pin_f32_matmul()
+        a2, dbl = self._device_operator(x.device)
+        frames = self.frame_signal(x.to(torch.float32))  # [..., W, T]
+        s2 = torch.matmul(a2, frames)  # [..., 2·nb, T]
+        nb = self.num_bins
+        s_re, s_im = s2[..., :nb, :], s2[..., nb:, :]
+        p = (s_re * s_re + s_im * s_im) * float(np.float32(self.scale))
+        p = p * dbl
+        t = p.shape[-1]
+        cols = torch.arange(t, device=x.device)
+        if valid_len is None:
+            frame_valid = torch.ones(x.shape[:-1] + (t,), dtype=torch.bool,
+                                     device=x.device)
+        else:
+            valid_len = torch.as_tensor(valid_len, device=x.device)
+            n_valid = torch.div(valid_len - self.window_length, self.hop,
+                                rounding_mode="floor") + 1
+            frame_valid = cols < n_valid[..., None]
+            p = torch.where(frame_valid[..., None, :], p, 0.0)
+        freqs = (torch.arange(nb, dtype=torch.float32, device=x.device)
+                 * float(np.float32(self.fs / self.nfft)))
+        times = ((cols.to(torch.float32) * self.hop + self.window_length / 2.0)
+                 / float(np.float32(self.fs)))
+        return SpectrogramResult(power=p, frame_valid=frame_valid, freqs=freqs,
+                                 times=times)
+
 
 def quantize_db_int8(db: torch.Tensor) -> torch.Tensor:
     """dB float32 → int8 code: round((db − lo)/step) − 128, half to even."""
@@ -110,14 +170,13 @@ def psd_db(power: torch.Tensor, gmax: torch.Tensor | None = None) -> torch.Tenso
     282-283), written as the export kernel computes it:
     ``LN10_INV_20 · ln(max(P, 1e-45) / gmax)``, floored at DB_FLOOR, with
     P = 0 → DB_FLOOR and the G > 0 guard. ``gmax`` defaults to the global
-    max of ``power``."""
+    max of ``power``; a tensor of one max per leading index broadcasts.
+    The constants are Python scalars, so nothing is copied from the host."""
     if gmax is None:
         gmax = power.amax()
     safe = torch.where(gmax > 0, gmax, torch.ones_like(gmax))
-    floor = torch.tensor(DB_FLOOR, dtype=torch.float32, device=power.device)
-    tiny = torch.tensor(1e-45, dtype=torch.float32, device=power.device)
-    db = LN10_INV_20 * torch.log(torch.maximum(power, tiny) / safe)
-    return torch.where(power > 0, torch.maximum(db, floor), floor)
+    db = LN10_INV_20 * torch.log(torch.clamp_min(power, 1e-45) / safe)
+    return torch.where(power > 0, torch.clamp_min(db, DB_FLOOR), DB_FLOOR)
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,2 +1,2 @@
-"""Frame chain, slow-time packing, the recording pipeline, JSON payloads
-and the spectrogram PNG."""
+"""Frame chain, slow-time packing, the recording pipeline, the streaming
+multi-channel processor, JSON payloads and the spectrogram PNG."""

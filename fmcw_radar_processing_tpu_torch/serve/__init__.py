@@ -1,1 +1,2 @@
-"""Service handler and command-line interface of the PyTorch pipeline."""
+"""Service handler, HTTP service (/process, /classify and its batcher),
+dashboard and command-line interface of the PyTorch pipeline."""

@@ -3,9 +3,13 @@
     python -m fmcw_radar_processing_tpu_torch.serve.cli synth <base> --frames N
     python -m fmcw_radar_processing_tpu_torch.serve.cli process <base> [--algo production] [--activity]
     python -m fmcw_radar_processing_tpu_torch.serve.cli serve-once [--profile production] [--activity]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli serve [--port 8060] [--classifier-artifact DIR]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli dashboard <data_dir> [--port 8050]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli classify --artifact DIR <image> ...
+    python -m fmcw_radar_processing_tpu_torch.serve.cli config <xml>
 
-``--device`` (default ``cuda``) picks where the pipeline runs; ``cpu`` runs
-the plain PyTorch versions of the kernels.
+``--device`` (default ``cuda``) picks where the pipeline and the classifier
+run; ``cpu`` runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -104,6 +108,84 @@ def cmd_serve_once(args) -> int:
     return 0 if result["status"] == "success" else 1
 
 
+def cmd_classify(args) -> int:
+    from fmcw_radar_processing_tpu_torch.models.infer import SpectrogramClassifier
+
+    try:
+        clf = SpectrogramClassifier.load(args.artifact, args.device)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    results = clf.classify_files(args.images)
+    print(json.dumps({"classes": list(clf.classes),
+                      "predictions": results}, indent=2))
+    return 0
+
+
+def cmd_config(args) -> int:
+    from fmcw_radar_processing_tpu.config import (
+        RadarConfig,
+        device_config_from_xml_file,
+    )
+
+    cfg = RadarConfig.create(device_config_from_xml_file(args.xml))
+    print(cfg.to_json())
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from fmcw_radar_processing_tpu_torch.serve.handler import HandlerConfig
+    from fmcw_radar_processing_tpu_torch.serve.http_service import RadarHttpService
+
+    cfg = HandlerConfig(
+        fdata=args.fdata,
+        workdir=args.workdir,
+        storage_spec=args.storage,
+        upload=not args.no_upload,
+        profile=args.profile,
+        device=args.device,
+    )
+    try:
+        srv = RadarHttpService(cfg, port=args.port, host=args.host,
+                               classifier_artifact=args.classifier_artifact,
+                               classify_queue_images=args.classify_queue)
+    except FileNotFoundError as e:  # before OSError, its base class
+        print(str(e), file=sys.stderr)
+        return 1
+    except OSError as e:
+        print(f"cannot bind {args.host}:{args.port}: {e.strerror or e}",
+              file=sys.stderr)
+        return 1
+    eps = "POST /process" + (", POST /classify" if srv.classifier else "")
+    print(f"radar service on {srv.url} ({eps}) — Ctrl-C to stop")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.stop()
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from fmcw_radar_processing_tpu_torch.serve.dashboard import DashboardServer
+
+    try:
+        srv = DashboardServer(args.data_dir, port=args.port, host=args.host)
+    except OSError as e:
+        print(f"cannot bind {args.host}:{args.port}: {e.strerror or e}",
+              file=sys.stderr)
+        return 1
+    print(f"dashboard on {srv.url} (data: {args.data_dir}) — Ctrl-C to stop")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.httpd.server_close()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fmcw-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -144,6 +226,41 @@ def build_parser() -> argparse.ArgumentParser:
                     default="fidelity", help=profile_help)
     po.add_argument("--device", default="cuda", help=device_help)
     po.set_defaults(fn=cmd_serve_once)
+
+    pcl = sub.add_parser("classify",
+                         help="classify spectrogram images with an artifact")
+    pcl.add_argument("--artifact", required=True,
+                     help="inference artifact dir (params.npz + meta.json)")
+    pcl.add_argument("--device", default="cuda", help=device_help)
+    pcl.add_argument("images", nargs="+", help="image files to classify")
+    pcl.set_defaults(fn=cmd_classify)
+
+    pv = sub.add_parser("serve", help="run the persistent HTTP service (MPS equivalent)")
+    pv.add_argument("--fdata", default="radar_data")
+    pv.add_argument("--workdir", default=".")
+    pv.add_argument("--storage", default=None)
+    pv.add_argument("--no-upload", action="store_true")
+    pv.add_argument("--port", type=int, default=8060)
+    pv.add_argument("--host", default="127.0.0.1")
+    pv.add_argument("--classifier-artifact",
+                    help="also serve POST /classify from this artifact dir")
+    pv.add_argument("--profile", choices=["fidelity", "production"],
+                    default="fidelity", help=profile_help)
+    pv.add_argument("--classify-queue", type=int, default=256,
+                    help="bounded /classify queue (images); full queue "
+                         "answers 503 (backpressure)")
+    pv.add_argument("--device", default="cuda", help=device_help)
+    pv.set_defaults(fn=cmd_serve)
+
+    pd = sub.add_parser("dashboard", help="serve the monitoring dashboard")
+    pd.add_argument("data_dir", help="directory with the pipeline's payloads")
+    pd.add_argument("--port", type=int, default=8050)
+    pd.add_argument("--host", default="127.0.0.1")
+    pd.set_defaults(fn=cmd_dashboard)
+
+    pc = sub.add_parser("config", help="print derived configuration as JSON")
+    pc.add_argument("xml")
+    pc.set_defaults(fn=cmd_config)
     return p
 
 

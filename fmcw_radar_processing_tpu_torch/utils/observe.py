@@ -1,4 +1,5 @@
-"""Stage timers: wall-clock per pipeline stage, synced to the device.
+"""Stage timers (wall-clock per pipeline stage, synced to the device) and
+structured event lines.
 
 CUDA launches return before the card finishes, so a stage's clock stops
 only after the work it queued has run: :func:`_sync` calls
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import sys
 import time
 from typing import Any, Iterator
 
@@ -125,3 +128,11 @@ class NullTimer:
 
     def observe(self, value: Any) -> Any:
         return value
+
+
+def log_event(event: str, *, stream=None, **fields: Any) -> dict:
+    """Emit one structured JSON event line (stderr by default) and return
+    the record."""
+    record = {"ts": round(time.time(), 3), "event": event, **fields}
+    print(json.dumps(record, default=str), file=stream or sys.stderr)
+    return record

@@ -353,8 +353,12 @@ import numpy as np
 from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig, default_device_config
 from fmcw_radar_processing_tpu.io.synth import SyntheticTarget, synthesize_recording
 import fmcw_radar_processing_tpu_torch.serve.cli
+import fmcw_radar_processing_tpu_torch.serve.dashboard
 import fmcw_radar_processing_tpu_torch.serve.handler
+import fmcw_radar_processing_tpu_torch.serve.http_service
+import fmcw_radar_processing_tpu_torch.models.infer
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
 from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
 
 cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
@@ -367,6 +371,9 @@ out = RadarPipeline(cfg, device="cpu").process_recording(
 assert np.array_equal(out.detected, present)
 assert np.all(out.target_range[0, present] == np.float32(7.5))
 assert np.isfinite(out.spectrogram_intensity).all()
+win = StreamingProcessor(cfg, 1, 24, "cpu").process_window(
+    to_pair(rec.rx1())[None], to_pair(rec.calib_vector(0, cfg.nts))[None])
+assert int(win.col_count[0]) == int(present.sum()) * cfg.pn - 19
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 print("no-jax ok")
 """
