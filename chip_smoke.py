@@ -3,36 +3,46 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
-and holds each against its plain PyTorch version, timing both: K1, K6
-(the range FFT stored too) and K7 (the fused peak search, T = 1 and 3) at
-the shapes of the production recording path (65,536 frames of 16 chirps ×
-64 samples), K2-K3 there at STFT nfft 256, K4a/K4b at the fidelity
-profile's shape (1,024 frames, nfft 16,384) and at 65,536 columns of nfft
-65,536, where offsets pass 2^31. Then it drives the main paths, each with
-the launch counters reset just before and read just after:
-``RadarPipeline.process_recording`` under the production profile on a
-65,536-frame synthetic recording with the default impl (K1, K2, K3) and
-with impl "pallas" (K6, K7, K2, K3), the recompute export
-``spectrogram(recompute=True)`` on that run's packed signal (K5a, K5b,
-bit-equal to K2/K3), and the fidelity profile on a 1,024-frame recording
-(K1, K4a, K4b), checking the detections against the injected targets.
+and holds each against its plain PyTorch version, timing both: K1a (the
+bf16x3 profile on the tensor cores, also held to the exact profile at
+100 dB), K1b (the exact profile), K6 (the range FFT stored too) and K7 (the
+fused peak search, T = 1 and 3) at the shapes of the production recording
+path (65,536 frames of 16 chirps × 64 samples), K2-K3 there at STFT nfft
+256, K3 and K5b at nfft 512 (K3's 64-column tiles), K4a/K4b at the
+fidelity profile's shape (1,024 frames, nfft 16,384)
+and at 65,536 columns of nfft 65,536, where offsets pass 2^31. Then it
+drives the main paths, each with the launch counters reset just before
+and read just after: ``RadarPipeline.process_recording`` under the
+production profile on a 65,536-frame synthetic recording with the default
+impl (K1a, K2, K3) and with impl "pallas" (K6, K7, K2, K3), the recompute
+export ``spectrogram(recompute=True)`` on that run's packed signal (K5a,
+K5b, bit-equal to K2/K3), the fidelity profile on a 1,024-frame recording
+(K1a, K4a, K4b) and that recording with impl "pallas_profile" (K1b),
+checking the detections against the injected targets.
 The service answers production and default-profile requests,
 full-recording ("no") and activity ("yes"). Then the persistent service
 path at full size: [stream] the streaming processor at bench.py's
-5_streaming_8ch shape (production, 8 channels, 256-frame windows, K1
+5_streaming_8ch shape (production, 8 channels, 256-frame windows, K1a
 counted), against the CPU plain path and its own window split, timed per
 window; [classify] VGG16 at 224×224×3 from seeded weights, bf16 against
 float32, timed at batch 1, 8 and 64; [service] the HTTP service with that
 classifier: /process, the dashboard's manifest, /classify alone, eight at
 once (coalesced) and at 1, 8 and 64 images. It prints a kernel table and a
-device line as JSON. Any failed check raises, so the exit code is
-non-zero. There is no CPU path: without a CUDA device it exits at once.
+device line as JSON. Each kernel row has its time (``ms``: the first of
+two timed runs in each turn, right after its plain version; the second,
+right after itself, is ``ms_second_in_turn``), its plain version's time,
+its launches on the path that drives it, and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its operations over the peak
+of their type (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s float32),
+the published H100 SXM figures. Any failed check raises, so the exit code
+is non-zero. There is no CPU path: without a CUDA device it exits at once.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -56,6 +66,11 @@ STREAM_WINDOWS = 4  # windows of the 1,024-frame recording
 STREAM_TIMED = 20  # timed steady-state windows per mode and input
 VGG_SHAPE = (224, 224, 3)
 VGG_BATCHES = (1, 8, 64)
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
+# operations/s by type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+NO_LIBRARY = "no single PyTorch call computes this function"
 
 
 def check(ok: bool, what: str) -> None:
@@ -63,29 +78,67 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_turns(fns: dict, reps: int = REPS) -> dict[str, float]:
+def time_turns(fns: dict, reps: int = REPS,
+               second: dict | None = None) -> dict[str, float]:
     """Median CUDA-event milliseconds of each callable, run in turns after
-    a warmup of each."""
+    a warmup of each. In its turn a callable runs twice, timed both times.
+    The first run, right after the previous callable, is its time (the
+    reading of every kernel time this script has reported); it also pays
+    for what that one left behind (freed allocations, cold translations).
+    The second run, right after itself, goes to ``second``."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     times: dict[str, list[float]] = {name: [] for name in fns}
+    seconds: dict[str, list[float]] = {name: [] for name in fns}
     for _ in range(reps):
         for name, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            times[name].append(start.elapsed_time(stop))
+            for into in (times, seconds):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                stop.record()
+                stop.synchronize()
+                into[name].append(start.elapsed_time(stop))
+    if second is not None:
+        second.update({name: statistics.median(t) for name, t in seconds.items()})
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float]:
-    """Median CUDA-event milliseconds of a kernel and its plain version."""
-    t = time_turns({"kernel": kernel, "plain": plain}, reps)
-    return t["kernel"], t["plain"]
+def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float, float]:
+    """Median CUDA-event milliseconds of a kernel and its plain version, in
+    turns, and the kernel's second-in-turn median (see time_turns)."""
+    second: dict[str, float] = {}
+    t = time_turns({"kernel": kernel, "plain": plain}, reps, second)
+    return t["kernel"], t["plain"], second["kernel"]
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM_BYTES_S and the operations over the peak of their kind."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def psd_ops(columns: int, nb_pad: int) -> float:
+    """float32 operations of the PSD of ``columns`` valid windows: two
+    20-tap dot products per bin, then the square-add."""
+    return float(columns) * nb_pad * (2 * 2 * 20 + 3)
+
+
+def db_ops(t_pad: int, nb_pad: int, num_bins: int = 1024) -> float:
+    """float32 operations of the dB map (clamp, divide, log, scale, floor)
+    and of the two-tap interpolation (a multiply and an FMA) per column."""
+    return float(t_pad) * (5 * nb_pad + 3 * num_bins)
+
+
+def snr_db(got, want) -> float:
+    got = torch.as_tensor(got, dtype=torch.float64)
+    want = torch.as_tensor(want, dtype=torch.float64)
+    err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    return -20.0 * float(np.log10(max(err, 1e-30)))
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +201,7 @@ def k4_check(stc, db_floor, sig, count, op, int_dtype, last_cols=None):
 
 def k4_times(stc, nb: int, operands, reps: int):
     """Median ms of K4a and of K4b (float32 stores), each in turns with its
-    plain version: ((K4a, plain), (K4b, plain))."""
+    plain version: ((K4a, plain, K4a second in turn), (K4b, ...))."""
     sig, nv, a2, nb_pad, t_pad, p, gmax = operands
     f32 = torch.float32
     k4a = time_pair(lambda: stc.psd_phase1_tiled(sig, nv, a2, nb_pad, t_pad),
@@ -156,6 +209,64 @@ def k4_times(stc, nb: int, operands, reps: int):
     k4b = time_pair(lambda: stc.db_rescale_tiled(p, gmax, nb, 1024, f32, f32),
                     lambda: stc.db_rescale_ref(p, gmax, nb, 1024, f32, f32), reps)
     return k4a, k4b
+
+
+def k3_wide_check(stc, db_floor, sig, nv, op) -> None:
+    """K3 where its 128-column tiles no longer fit a block's shared memory
+    (nb_pad above 208, here nfft 512: nb_pad 264 with the float32 dB map,
+    272 with the bf16 one), so it runs 64-column tiles. Every store dtype
+    against the plain version; with the float32 dB map, K5b bit-equal."""
+    nb = op.num_bins
+    t_pad = -(-(sig.shape[0] - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    f32, bf16 = torch.float32, torch.bfloat16
+    for db_dtype, int_dtype in ((f32, f32), (f32, bf16), (f32, torch.int8),
+                                (bf16, bf16)):
+        align = 16 if db_dtype == bf16 else 8
+        nb_pad = -(-nb // align) * align
+        check(2 * nb_pad * 128 * 4 + 1024 * 12 > optin,
+              f"nb_pad {nb_pad} takes K3's 64-column tiles")
+        a2 = torch.as_tensor(stc._folded_operator(op, align), device=sig.device)
+        p, tmax = stc.psd_phase1(sig, nv, a2, nb_pad, t_pad)
+        gmax = tmax.amax()
+        db, out = stc.db_rescale(p, gmax, nb, 1024, db_dtype, int_dtype)
+        db_ref, out_ref = stc.db_rescale_ref(p, gmax, nb, 1024, db_dtype, int_dtype)
+        ok = bool(torch.equal(db == db_floor, db_ref == db_floor))
+        d = (db.float() - db_ref.float()).abs()
+        ok &= bool((d <= (2e-3 if db_dtype == f32
+                          else bf16_ulp(db_ref.float()))).all())
+        db_err = float(d.max())
+        if int_dtype == torch.int8:
+            d = (out.int() - out_ref.int()).abs()
+            ok &= bool((d <= 1).all())
+        elif int_dtype == bf16:
+            d = (out.float() - out_ref.float()).abs()
+            ok &= bool((d <= bf16_ulp(out_ref.float())).all())
+        else:
+            d = (out - out_ref).abs()
+            ok &= bool((d <= 2e-3).all())
+        int_err = float(d.max())
+        del d, db_ref, out_ref, p
+        bit = "n/a (K5b stores a float32 dB map only)"
+        if db_dtype == f32:
+            tmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad)
+            db_r, out_r = stc.db_rescale_recompute(sig, nv, a2, tmax_r.amax(), nb,
+                                                   1024, t_pad, int_dtype)
+            same = [bool(torch.equal(tmax_r, tmax)), bool(torch.equal(db_r, db)),
+                    bool(torch.equal(out_r, out))]
+            ok &= all(same)
+            bit = str(same)
+            del db_r, out_r
+        tol = {f32: "2e-3", bf16: "one bf16 ulp", torch.int8: "one code"}
+        print(f"[parity] K3 db_rescale 64-column tiles nfft {op.nfft} "
+              f"nb_pad={nb_pad} t_pad={t_pad} stores {str(db_dtype)[6:]}/"
+              f"{str(int_dtype)[6:]}: db max_abs_err {db_err:.6g} (tol "
+              f"{tol[db_dtype]}), intensity {int_err:.6g} (tol {tol[int_dtype]}); "
+              f"tmax, db, intensity bit-equal to K5b {bit} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"K3 parity at nb_pad {nb_pad} ({db_dtype}, {int_dtype})")
+        del db, out
+    torch.cuda.empty_cache()
 
 
 def serve_no(svc, work: str, want_range, what: str) -> None:
@@ -266,10 +377,10 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     launches = dict(lib.LAUNCHES)
     print(f"[stream] launches over {windows} windows of {channels} channels: "
           f"{launches}")
-    check(launches["fast_time_profile"] == channels * windows,
-          f"K1 launched once per channel and window ({channels * windows})")
-    check(sum(launches.values()) == launches["fast_time_profile"],
-          "only K1 on the streaming path")
+    check(launches["fast_time_profile_b3"] == channels * windows,
+          f"K1a launched once per channel and window ({channels * windows})")
+    check(sum(launches.values()) == launches["fast_time_profile_b3"],
+          "only K1a on the streaming path")
 
     # Detections, ranges and speeds against the injected targets.
     n_det = 0
@@ -292,15 +403,17 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     print(f"[stream] ranges and speeds equal the injected targets in all "
           f"{n_det} detected frames of {channels * frames}")
 
-    # The first window against the port's CPU plain path on the same input.
+    # The first window against the port's CPU plain path on the same input
+    # (its chain's "auto" is the exact profile there, K1a's bf16x3 here: the
+    # waterfall is held to 100 dB, detections, ranges and speeds exactly).
     want = StreamingProcessor(cfg, channels, window, "cpu").process_window(
         raw[:, :window], cal)
     g0 = got[0]
     check(torch.equal(g0.detected.cpu(), want.detected)
           and torch.equal(g0.col_count.cpu(), want.col_count), "first window: "
           "detected, col_count exact")
-    check(torch.allclose(g0.waterfall.cpu(), want.waterfall, rtol=1e-5, atol=1e-2),
-          "first window: waterfall rtol 1e-5 / atol 1e-2")
+    w_snr = snr_db(g0.waterfall.cpu(), want.waterfall)
+    check(w_snr >= 100.0, f"first window: waterfall {w_snr:.2f} dB >= 100 dB")
     for name, atol in (("range", 0.0), ("speed", 1e-7)):
         a, b = getattr(g0, name).cpu(), getattr(want, name)
         check(torch.equal(a.isnan(), b.isnan())
@@ -318,7 +431,8 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     for name in ("norm_power", "carry"):
         check(torch.allclose(getattr(g0, name).cpu(), getattr(want, name),
                              rtol=1e-5, atol=0), f"first window: {name} rtol 1e-5")
-    print(f"[stream] first window on cuda = the CPU plain path: psd max err "
+    print(f"[stream] first window on cuda = the CPU plain path: waterfall "
+          f"{w_snr:.2f} dB SNR (tol 100 dB), psd max err "
           f"{psd_err:.3g} of the max (tol 1e-4), psd_db {db_err[-100]:.3g} dB "
           f"above -100 dB (tol 1e-3), {db_err[-120]:.3g} above -120 (tol 2e-3)")
 
@@ -343,7 +457,7 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     print(f"[stream] host syncs per window: {syncs_dev} with inputs on the "
           f"card, {syncs_host} with host NumPy inputs")
 
-    out = {"launches_per_window": launches["fast_time_profile"] // windows,
+    out = {"launches_per_window": launches["fast_time_profile_b3"] // windows,
            "syncs_device_inputs": syncs_dev, "syncs_host_inputs": syncs_host}
     for mode in ("per_window", "running_max"):
         proc = StreamingProcessor(cfg, channels, window, dev, db_mode=mode)
@@ -604,6 +718,16 @@ def main() -> int:
     _lib.load_kernels()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_lib.library_path().name})")
+    log = _lib.library_path().with_suffix(".log")
+    if log.exists():  # ptxas -v: registers and spills of every kernel
+        text = log.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
+        b3 = re.search(r"profile_b3_kernel[^\n]*\n[^\n]*\n[^\n]*Used (\d+) registers",
+                       text)
+        print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} registers "
+              f"a thread (K1a {b3.group(1) if b3 else '?'}), {sum(spills)} bytes "
+              "of spill stores in all")
 
     # The main path's input: a 65,536-frame recording, two targets, about
     # 10% of frames muted so that slow-time packing is not the identity.
@@ -623,28 +747,69 @@ def main() -> int:
     # 3. Kernel parity at the main-path shapes, and 4. timing.
     rows: list[dict] = []
 
-    # K1 on x [F·PN, 128].
+    # K1a and K1b on x [F·PN, 128].
     w = ftc.blocked_weight(cfg, dev)
+    w_hi, w_lo = ftc.split_bf16x3(w)
     off = ftc.calib_offset(torch.as_tensor(calib, device=dev), w)
     x = torch.as_tensor(raw, device=dev).reshape(-1, 2 * cfg.nts)
-    prof = ftc.fast_time_profile(x, w, off, cfg.pn)
-    prof_ref = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
-    err = (prof - prof_ref).abs()
+    rows_x, k_bins = x.shape[0], cfg.range_fft_size
+    prof_bytes = rows_x // cfg.pn * k_bins * 4
+    product_ops = 2.0 * rows_x * x.shape[1] * 2 * k_bins  # one [rows,128]@[128,512]
+
+    # K1a: held to its plain version (the same split) and to the exact
+    # plain profile (100 dB, the bf16x3 class).
+    prof_a = ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn)
+    prof_a_ref = ftc.fast_time_profile_b3_ref(x, w_hi, w_lo, off, cfg.pn)
+    prof = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+    err = (prof_a - prof_a_ref).abs()
+    k1a_err = float(err.max())
+    k1a_snr = snr_db(prof_a, prof)
+    k1a_ok = bool((err <= 1e-2 + 1e-5 * prof_a_ref.abs()).all()) and k1a_snr >= 100.0
+    print(f"[parity] K1a fast_time_profile_b3 {tuple(x.shape)} -> "
+          f"{tuple(prof_a.shape)}: max_abs_err {k1a_err:.6g} vs its plain "
+          f"version (tol 1e-2 + 1e-5·|ref|); {k1a_snr:.2f} dB SNR vs the exact "
+          f"plain profile (tol 100 dB) {'ok' if k1a_ok else 'FAIL'}")
+    check(k1a_ok, "K1a parity")
+    del prof_a, prof_a_ref, err
+    ms1a, plain_ms1a, second1a = time_pair(
+        lambda: ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn),
+        lambda: ftc.fast_time_profile_b3_ref(x, w_hi, w_lo, off, cfg.pn))
+    xb = x.to(torch.bfloat16)
+    yard_ms = time_turns({"mm": lambda: torch.matmul(xb, w_hi)})["mm"]
+    del xb
+    print(f"[time] K1a kernel {ms1a:.4f} ms (second in its turn {second1a:.4f}), "
+          f"plain {plain_ms1a:.4f} ms (median of {REPS}); yardstick, not used "
+          f"by the port: one bf16 "
+          f"torch.matmul [{rows_x},128]@[128,512] alone {yard_ms:.4f} ms")
+    rows.append(dict(name="fast_time_profile_b3", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile_b3.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
+                     max_abs_err=k1a_err, ms=ms1a, plain_ms=plain_ms1a, ms_second=second1a,
+                     bound=bound(x.numel() * 4 + 2 * w_hi.numel() * 2
+                                 + off.numel() * 4 + prof_bytes,
+                                 3 * product_ops, "bf16")))
+
+    # K1b, the exact class (impl "pallas_profile").
+    prof_b = ftc.fast_time_profile(x, w, off, cfg.pn)
+    err = (prof_b - prof).abs()
     k1_err = float(err.max())
-    k1_ok = bool((err <= 1e-2 + 1e-5 * prof_ref.abs()).all())
-    print(f"[parity] K1 fast_time_profile {tuple(x.shape)} -> {tuple(prof.shape)}: "
+    k1_ok = bool((err <= 1e-2 + 1e-5 * prof.abs()).all())
+    print(f"[parity] K1b fast_time_profile {tuple(x.shape)} -> {tuple(prof_b.shape)}: "
           f"max_abs_err {k1_err:.6g} (tol 1e-2 + 1e-5·|ref|) "
           f"{'ok' if k1_ok else 'FAIL'}")
-    check(k1_ok, "K1 parity")
-    ms, plain_ms = time_pair(lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
+    check(k1_ok, "K1b parity")
+    prof = prof_b
+    ms, plain_ms, second1b = time_pair(lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
                              lambda: ftc.fast_time_profile_ref(x, w, off, cfg.pn))
-    print(f"[time] K1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {REPS})")
+    print(f"[time] K1b kernel {ms:.4f} ms (second in its turn {second1b:.4f}), "
+          f"plain {plain_ms:.4f} ms (median of {REPS})")
     rows.append(dict(name="fast_time_profile", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
-                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
-                     max_abs_err=k1_err, ms=ms, plain_ms=plain_ms))
-    del prof_ref, err
+                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
+                     max_abs_err=k1_err, ms=ms, plain_ms=plain_ms, ms_second=second1b,
+                     bound=bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4
+                                 + prof_bytes, product_ops, "f32")))
+    del err, prof_b
 
     # K6 on the same x: the range FFT [F, PN, K, 2] (2 GiB) and the profile.
     rf, prof6 = ftc.fast_time(x, w, off, cfg.pn)
@@ -663,14 +828,17 @@ def main() -> int:
     check(k6_ok, "K6 parity")
     del rf, perr, prof6_ref, prof
     torch.cuda.empty_cache()
-    ms6, plain_ms6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
+    ms6, plain_ms6, second6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
                                lambda: ftc.fast_time_ref(x, w, off, cfg.pn))
     print(f"[time] K6 kernel {ms6:.4f} ms, plain {plain_ms6:.4f} ms "
           f"(median of {REPS})")
     rows.append(dict(name="fast_time", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:35",
-                     max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6))
+                     max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6, ms_second=second6,
+                     bound=bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4
+                                 + prof_bytes + rows_x * k_bins * 2 * 4,
+                                 product_ops, "f32")))
     torch.cuda.empty_cache()
 
     # K7 on K6's profile [65,536, 256], at T = 1 and on a T = 3 config: every
@@ -689,14 +857,16 @@ def main() -> int:
               f"{same}; {n_valid} valid of {got.valid.numel()} slots "
               f"{'ok' if all(same) else 'FAIL'}")
         check(all(same) and 0 < n_valid < got.valid.numel(), "K7 parity")
-    ms7, plain_ms7 = time_pair(lambda: dtc.search_peaks_fused(prof6, cfg),
+    ms7, plain_ms7, second7 = time_pair(lambda: dtc.search_peaks_fused(prof6, cfg),
                                lambda: dtc.search_peaks_fused_ref(prof6, cfg))
     print(f"[time] K7 kernel {ms7:.4f} ms, plain {plain_ms7:.4f} ms "
           f"(T=1, median of {REPS})")
     rows.append(dict(name="search_peaks_fused", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/detect.cu",
                      replaces="fmcw_radar_processing_tpu/ops/detect_pallas.py:29",
-                     max_abs_err=k7_err, ms=ms7, plain_ms=plain_ms7))
+                     max_abs_err=k7_err, ms=ms7, plain_ms=plain_ms7, ms_second=second7,
+                     bound=bound(prof6.numel() * 4 + prof6.shape[0] * (4 + 4 + 1),
+                                 3.0 * prof6.numel(), "f32")))
     del prof6, got, want
     torch.cuda.empty_cache()
 
@@ -752,24 +922,39 @@ def main() -> int:
             k3_err = max(errs)
         del db, out, db_ref, out_ref
     # Time the production variant (bf16 stores, nb_pad 144).
-    ms2, plain_ms2 = time_pair(
+    ms2, plain_ms2, second2 = time_pair(
         lambda: stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad),
         lambda: stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad))
-    ms3, plain_ms3 = time_pair(
+    ms3, plain_ms3, second3 = time_pair(
         lambda: stc.db_rescale(p, gmax, nb, 1024, torch.bfloat16, torch.bfloat16),
         lambda: stc.db_rescale_ref(p, gmax, nb, 1024, torch.bfloat16,
                                    torch.bfloat16))
     print(f"[time] K2 kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms; "
-          f"K3 kernel {ms3:.4f} ms, plain {plain_ms3:.4f} ms (median of {REPS})")
+          f"K3 kernel {ms3:.4f} ms (second in its turn {second3:.4f}), plain "
+          f"{plain_ms3:.4f} ms (median of {REPS})")
     rows.append(dict(name="psd_phase1", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:134",
-                     max_abs_err=k2_err, ms=ms2, plain_ms=plain_ms2))
+                     max_abs_err=k2_err, ms=ms2, plain_ms=plain_ms2, ms_second=second2,
+                     bound=bound(length * 4 + a2.numel() * 4 + nb_pad * t_pad * 4
+                                 + t_pad // stc.PSD_TILE * 4,
+                                 psd_ops(count - 19, nb_pad), "f32")))
     rows.append(dict(name="db_rescale", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:282",
-                     max_abs_err=k3_err, ms=ms3, plain_ms=plain_ms3))
-    del p, tmax, sig, x
+                     max_abs_err=k3_err, ms=ms3, plain_ms=plain_ms3, ms_second=second3,
+                     bound=bound(nb_pad * t_pad * (4 + 2) + 1024 * t_pad * 2
+                                 + 1024 * 12 + 4, db_ops(t_pad, nb_pad), "f32")))
+    del p, tmax
+    torch.cuda.empty_cache()
+    # K3 at nfft 512 (the production profile's stft_nfft=512 option) on the
+    # last 16,384 frames' samples, which straddle the valid count.
+    start = length - 16_384 * cfg.pn
+    check(0 < count - start < length - start, "the nfft 512 input straddles the count")
+    k3_wide_check(stc, DB_FLOOR, sig[start:].contiguous(), count - start - 19,
+                  StftOperator.create(window_length=20, beta=3.0, nfft=512,
+                                      fs=1.0 / cfg.derived.prt))
+    del sig, x
     torch.cuda.empty_cache()
 
     # K4a + K4b at the fidelity main path's shape: L = 1,024 frames · 16,
@@ -778,6 +963,8 @@ def main() -> int:
     f_count = int(present[:FIDELITY_FRAMES].sum()) * cfg.pn
     f_op = StftOperator.create(window_length=20, beta=3.0, nfft=16_384,
                                fs=1.0 / cfg.derived.prt)
+    f_nb_pad = -(-f_op.num_bins // 8) * 8
+    f_t_pad = -(-(f_len - 19) // stc.PSD_TILE) * stc.PSD_TILE
     sig = torch.as_tensor(sig_np[:f_len].copy(), device=dev)
     sig[f_count:] = 0.0
     k4_errs = []
@@ -785,7 +972,7 @@ def main() -> int:
         errs, ops_ = k4_check(stc, DB_FLOOR, sig, f_count, f_op, int_dtype)
         if int_dtype == torch.float32:
             k4_errs.append(errs)
-            (ms4a, plain_ms4a), (ms4b, plain_ms4b) = k4_times(
+            (ms4a, plain_ms4a, second4a), (ms4b, plain_ms4b, second4b) = k4_times(
                 stc, f_op.num_bins, ops_, REPS)
         del ops_
     print(f"[time] K4a kernel {ms4a:.4f} ms, plain {plain_ms4a:.4f} ms; "
@@ -805,7 +992,7 @@ def main() -> int:
                           last_cols=2048)
     k4_errs.append(errs)
     torch.cuda.empty_cache()
-    (wms4a, wplain4a), (wms4b, wplain4b) = k4_times(stc, w_op.num_bins, ops_,
+    (wms4a, wplain4a, _), (wms4b, wplain4b, _) = k4_times(stc, w_op.num_bins, ops_,
                                                     WIDE_REPS)
     print(f"[time] K4a kernel {wms4a:.4f} ms, plain {wplain4a:.4f} ms; "
           f"K4b kernel {wms4b:.4f} ms, plain {wplain4b:.4f} ms "
@@ -814,12 +1001,18 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:215",
                      max_abs_err=max(e[0] for e in k4_errs), ms=ms4a,
-                     plain_ms=plain_ms4a))
+                     plain_ms=plain_ms4a, ms_second=second4a,
+                     bound=bound(f_len * 4 + 2 * f_nb_pad * 20 * 4
+                                 + f_nb_pad * f_t_pad * 4
+                                 + -(-f_nb_pad // 128) * f_t_pad // stc.PSD_TILE * 4,
+                                 psd_ops(f_count - 19, f_nb_pad), "f32")))
     rows.append(dict(name="db_rescale_tiled", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:238",
                      max_abs_err=max(max(e[1:]) for e in k4_errs), ms=ms4b,
-                     plain_ms=plain_ms4b))
+                     plain_ms=plain_ms4b, ms_second=second4b,
+                     bound=bound(f_nb_pad * f_t_pad * (4 + 4) + 1024 * f_t_pad * 4
+                                 + 1024 * 12 + 4, db_ops(f_t_pad, f_nb_pad), "f32")))
     del sig, ops_
     torch.cuda.empty_cache()
 
@@ -831,7 +1024,10 @@ def main() -> int:
     s_raw, s_cal = to_pair(small.rx1()), to_pair(small.calib_vector(0, cfg.nts))
     pipe = RadarPipeline(cfg, device=dev)
     got = pipe.process_recording(s_raw, s_cal)
-    want = RadarPipeline(cfg, device="cpu").process_recording(s_raw, s_cal)
+    # The same impl on the CPU: "auto" is K1a's bf16x3 on the card but the
+    # exact profile there.
+    want = RadarPipeline(cfg, device="cpu", impl="pallas_profile_high"
+                         ).process_recording(s_raw, s_cal)
     check(np.array_equal(got.detected, want.detected), "small: detected")
     check(np.array_equal(got.target_range, want.target_range, equal_nan=True),
           "small: ranges")
@@ -844,9 +1040,9 @@ def main() -> int:
         b = torch.as_tensor(getattr(want, name))
         check(a.shape == b.shape, f"small: {name} shape")
         band = b > -120
-        bound = torch.maximum(bf16_ulp(torch.maximum(a.abs(), b.abs())),
-                              torch.tensor(1e-3))
-        check(bool(((a - b).abs() <= bound)[band].all()),
+        tol = torch.maximum(bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                            torch.tensor(1e-3))
+        check(bool(((a - b).abs() <= tol)[band].all()),
               f"small: {name} within one bf16 ulp above -120 dB")
     print("[small] 256-frame recording on cuda matches the CPU plain path")
 
@@ -865,10 +1061,10 @@ def main() -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(timer.pretty())
     print(f"[main] launches {launches}")
-    for name in ("fast_time_profile", "psd_phase1", "db_rescale"):
+    for name in ("fast_time_profile_b3", "psd_phase1", "db_rescale"):
         check(launches[name] > 0, f"{name} launched on the main path")
-    for name in ("psd_phase1_tiled", "db_rescale_tiled"):
-        check(launches[name] == 0, f"{name} not launched at nfft 256")
+    for name in ("fast_time_profile", "psd_phase1_tiled", "db_rescale_tiled"):
+        check(launches[name] == 0, f"{name} not launched on the main path")
     check(np.array_equal(out.detected, present), "detected frames = target frames")
     det = out.detected
     want_range = np.float32(strong.range_bin(cfg)) * np.float32(cfg.derived.dist_per_bin)
@@ -894,7 +1090,37 @@ def main() -> int:
     print(f"[main] intensity {inten.shape} finite, dB map max 0, "
           f"{int((psd == DB_FLOOR).sum())} floor values, no floored column")
     main_waterfall = out.waterfall
+    main_meas = (out.detected, out.target_range, out.target_speed)
     del out, inten, psd
+
+    # 5a'. The exact chain, impl "pallas_profile" (K1b), on the same
+    # recording, counted: detections, ranges and speeds equal the main
+    # path's (bf16x3) exactly, and the main path's waterfall is within
+    # 100 dB of this exact one.
+    xpipe = RadarPipeline(cfg, device=dev, impl="pallas_profile")
+    xpipe.process_recording(s_raw, s_cal)  # warm
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    xout = xpipe.process_recording(raw, calib)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    x_launches = dict(_lib.LAUNCHES)
+    print(f"[exact] process_recording impl='pallas_profile' {FRAMES} frames: "
+          f"{seconds:.4f} s; launches {x_launches}")
+    check(x_launches["fast_time_profile"] > 0
+          and x_launches["fast_time_profile_b3"] == 0,
+          "impl='pallas_profile' runs K1b, not K1a")
+    for name, a, b in zip(("detected", "ranges", "speeds"), main_meas,
+                          (xout.detected, xout.target_range, xout.target_speed)):
+        check(np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+              f"main path {name} = impl='pallas_profile' {name}")
+    main_snr = snr_db(main_waterfall, xout.waterfall)
+    check(main_snr >= 100.0, f"main path waterfall {main_snr:.2f} dB vs exact")
+    print(f"[exact] detections, ranges and speeds of the main path (K1a) equal "
+          f"the exact chain's (K1b); main-path waterfall {main_snr:.2f} dB SNR "
+          "against it (tol 100 dB)")
+    del xout, xpipe, main_meas
 
     # 5b. The materializing chain, impl "pallas" (K6 + K7). First 256 frames
     # through make_frame_chain with the range FFT on the card against the
@@ -949,12 +1175,12 @@ def main() -> int:
           and np.all(np.isnan(pout.target_range[0, ~det]))
           and np.all(pout.target_speed[0, det] == want_speed),
           f"pallas: ranges = {want_range}, speeds = {want_speed}")
-    check(np.allclose(pout.waterfall, main_waterfall, rtol=1e-5, atol=1e-2),
-          "pallas: waterfall = the default impl's")
-    w_err = float(np.abs(pout.waterfall - main_waterfall).max())
+    # impl "pallas" is exact float32 (K6), the default impl bf16x3 (K1a).
+    w_snr = snr_db(main_waterfall, pout.waterfall)
+    check(w_snr >= 100.0, f"pallas: the default impl's waterfall {w_snr:.2f} dB")
     print(f"[pallas] range {want_range} m and speed {want_speed} m/s in all "
-          f"{int(det.sum())} detected frames; waterfall max_abs_err {w_err:.6g} "
-          "vs the default impl (tol rtol 1e-5 / atol 1e-2)")
+          f"{int(det.sum())} detected frames; the default impl's waterfall "
+          f"{w_snr:.2f} dB SNR against it (tol 100 dB)")
     del pout, main_waterfall, ppipe
     torch.cuda.empty_cache()
 
@@ -1045,11 +1271,11 @@ def main() -> int:
     print(f"[time] export nfft 256, float32 dB, bf16 intensity: K2+K3 "
           f"{export['K2+K3']:.4f} ms, K5a+K5b {export['K5a+K5b']:.4f} ms, plain "
           f"{export['plain']:.4f} ms (in turns, median of {REPS})")
-    ms5a, plain_ms5a = time_pair(
+    ms5a, plain_ms5a, second5a = time_pair(
         lambda: stc.psd_tmax(sig, nv, a2, nb_pad, t_pad),
         lambda: stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad))
     gmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
-    ms5b, plain_ms5b = time_pair(
+    ms5b, plain_ms5b, second5b = time_pair(
         lambda: stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024, t_pad, bf16),
         lambda: stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb, 1024, t_pad,
                                              bf16))
@@ -1058,11 +1284,18 @@ def main() -> int:
     rows.append(dict(name="psd_tmax", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
-                     max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a))
+                     max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a, ms_second=second5a,
+                     bound=bound(sig.numel() * 4 + a2.numel() * 4
+                                 + t_pad // stc.PSD_TILE * 4,
+                                 psd_ops(nv, nb_pad), "f32")))
     rows.append(dict(name="db_rescale_recompute", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:178",
-                     max_abs_err=k5b_err, ms=ms5b, plain_ms=plain_ms5b))
+                     max_abs_err=k5b_err, ms=ms5b, plain_ms=plain_ms5b, ms_second=second5b,
+                     bound=bound(sig.numel() * 4 + a2.numel() * 4 + 1024 * 12 + 4
+                                 + nb_pad * t_pad * 4 + 1024 * t_pad * 2,
+                                 psd_ops(nv, nb_pad) + db_ops(t_pad, nb_pad),
+                                 "f32")))
     del sig, a2
 
     # 6. The fidelity profile — the bare AlgorithmConfig, the service's
@@ -1110,10 +1343,10 @@ def main() -> int:
           f"{seconds:.4f} s = {FIDELITY_FRAMES / seconds:,.1f} frames/s end to end")
     print(timer.pretty())
     print(f"[fidelity] launches {f_launches}")
-    for name in ("fast_time_profile", "psd_phase1_tiled", "db_rescale_tiled"):
+    for name in ("fast_time_profile_b3", "psd_phase1_tiled", "db_rescale_tiled"):
         check(f_launches[name] > 0, f"{name} launched on the fidelity path")
-    for name in ("psd_phase1", "db_rescale"):
-        check(f_launches[name] == 0, f"{name} not launched at nfft 16384")
+    for name in ("fast_time_profile", "psd_phase1", "db_rescale"):
+        check(f_launches[name] == 0, f"{name} not launched on the fidelity path")
     det = fout.detected
     check(np.array_equal(det, fpresent), "fidelity: detected frames = target frames")
     check(np.all(fout.target_range[0, det] == want_range)
@@ -1177,19 +1410,32 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # Launches of each kernel on the path that drives it: the production
-    # run for K1-K3, the fidelity run for K4a/K4b, the impl "pallas" run
-    # for K6/K7, spectrogram(recompute=True) for K5a/K5b.
-    counts = {**launches, "psd_phase1_tiled": f_launches["psd_phase1_tiled"],
-              "db_rescale_tiled": f_launches["db_rescale_tiled"],
-              "fast_time": p_launches["fast_time"],
-              "search_peaks_fused": p_launches["search_peaks_fused"],
-              "psd_tmax": k5_launches["psd_tmax"],
-              "db_rescale_recompute": k5_launches["db_rescale_recompute"]}
-    table = [dict(name=r["name"], route=r["route"], source=r["source"],
-                  replaces=r["replaces"], launches=counts[r["name"]],
-                  max_abs_err=r["max_abs_err"], ms=r["ms"],
-                  plain_ms=r["plain_ms"]) for r in rows]
+    # Launches of each kernel on the main path that drives it (the row's
+    # "launches", that path named in "main_path"): the production
+    # run for K1a, K2, K3, the impl "pallas_profile" run for K1b, the
+    # fidelity run for K4a/K4b, the impl "pallas" run for K6/K7,
+    # spectrogram(recompute=True) for K5a/K5b.
+    paths = {"fast_time_profile_b3": ("production", launches),
+             "fast_time_profile": ("production impl='pallas_profile'", x_launches),
+             "psd_phase1": ("production", launches),
+             "db_rescale": ("production", launches),
+             "psd_phase1_tiled": ("fidelity", f_launches),
+             "db_rescale_tiled": ("fidelity", f_launches),
+             "fast_time": ("production impl='pallas'", p_launches),
+             "search_peaks_fused": ("production impl='pallas'", p_launches),
+             "psd_tmax": ("spectrogram(recompute=True)", k5_launches),
+             "db_rescale_recompute": ("spectrogram(recompute=True)", k5_launches)}
+    table = []
+    for r in rows:
+        path, counts = paths[r["name"]]
+        check(counts[r["name"]] > 0, f"{r['name']} launched on its path ({path})")
+        table.append(dict(
+            name=r["name"], route=r["route"], source=r["source"],
+            replaces=r["replaces"], launches=counts[r["name"]], main_path=path,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            ms_second_in_turn=r["ms_second"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
+            library_note=NO_LIBRARY))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,11 +54,44 @@ __device__ __forceinline__ void emit(__nv_bfloat16* dst, float v, float,
                                      float) {
   *dst = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ void emit(int8_t* dst, float v, float lo,
-                                     float scale) {
+__device__ __forceinline__ int8_t int8_code(float v, float lo, float scale) {
   float q = rintf((v - lo) * scale);
   q = fminf(fmaxf(q, 0.f), 255.f);
-  *dst = (int8_t)(int)(q - 128.f);
+  return (int8_t)(int)(q - 128.f);
+}
+__device__ __forceinline__ void emit(int8_t* dst, float v, float lo,
+                                     float scale) {
+  *dst = int8_code(v, lo, scale);
+}
+
+// emit of 8 consecutive values (dst 16-byte aligned for float and bf16, 8
+// for int8) as whole 16- or 8-byte streaming stores (st.global.cs): what
+// nothing on the device reads again should not stay in L2.
+__device__ __forceinline__ void emit8(float* dst, const float (&v)[8], float,
+                                      float) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(dst) + 1,
+         make_float4(v[4], v[5], v[6], v[7]));
+}
+__device__ __forceinline__ void emit8(__nv_bfloat16* dst, const float (&v)[8],
+                                      float, float) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __halves2bfloat162(__float2bfloat16_rn(v[2 * i]),
+                                                __float2bfloat16_rn(v[2 * i + 1]));
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __stcs(reinterpret_cast<uint4*>(dst), u);
+}
+__device__ __forceinline__ void emit8(int8_t* dst, const float (&v)[8],
+                                      float lo, float scale) {
+  uint2 u;
+  int8_t* b = reinterpret_cast<int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = int8_code(v[i], lo, scale);
+  __stcs(reinterpret_cast<uint2*>(dst), u);
 }
 
 }  // namespace

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 
 
 class DetectionResult(NamedTuple):

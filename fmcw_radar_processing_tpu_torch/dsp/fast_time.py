@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.windows import blackman
 from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, pin_f32_matmul
 
@@ -63,7 +63,7 @@ class PackedFastTime:
 
     @classmethod
     def create(cls, cfg: RadarConfig,
-               device: torch.device | str = "cpu") -> "PackedFastTime":
+               device: torch.device | str) -> "PackedFastTime":
         m = build_fast_time_matrix(cfg)  # (K, NTS) complex
         k, nts = m.shape
         w = np.zeros((2 * nts, 2 * k), np.float32)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.detection import DetectionResult
 from fmcw_radar_processing_tpu_torch.dsp.windows import chebwin
 from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, pair_matmul
@@ -55,7 +55,7 @@ class SlowTimeOperator:
 
     @classmethod
     def create(cls, cfg: RadarConfig,
-               device: torch.device | str = "cpu") -> "SlowTimeOperator":
+               device: torch.device | str) -> "SlowTimeOperator":
         m = build_slow_time_matrix(cfg)
         m_re = m.real.astype(np.float32)
         m_im = m.imag.astype(np.float32)

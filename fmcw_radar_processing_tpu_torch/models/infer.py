@@ -29,6 +29,7 @@ from fmcw_radar_processing_tpu_torch.models.params import (
     unflatten_tree,
 )
 from fmcw_radar_processing_tpu_torch.models.vgg import MODELS, build_model
+from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
 
 META_FILENAME = "meta.json"
 PARAMS_FILENAME = "params.npz"
@@ -84,17 +85,14 @@ class SpectrogramClassifier:
 
     def __init__(self, model_name: str, params,
                  input_shape: tuple[int, int, int],
-                 classes: Sequence[str], device: torch.device | str = "cpu"):
+                 classes: Sequence[str], device: torch.device | str = "cuda"):
         if model_name not in MODELS:
             raise ValueError(f"unknown model {model_name!r}; one of "
                              f"{sorted(MODELS)}")
         self.model_name = model_name
         self.input_shape = tuple(input_shape)
         self.classes = tuple(classes)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but "
-                               "torch.cuda.is_available() is False")
+        self.device = resolve_device(device)
         state = params_from_flax(model_name, params, self.input_shape)
         self.model = build_model(model_name, self.input_shape, device=self.device)
         self.model.load_state_dict(state)
@@ -118,7 +116,7 @@ class SpectrogramClassifier:
     # ------------------------------ loading ------------------------------
 
     @classmethod
-    def load(cls, path: str, device: torch.device | str = "cpu"
+    def load(cls, path: str, device: torch.device | str = "cuda"
              ) -> "SpectrogramClassifier":
         meta_path = os.path.join(path, META_FILENAME)
         if not os.path.exists(meta_path):

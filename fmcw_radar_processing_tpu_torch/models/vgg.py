@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
+
 # Standard VGG16 configuration: (convs per block, channels).
 VGG16_BLOCKS: tuple[tuple[int, int], ...] = (
     (2, 64), (2, 128), (3, 256), (3, 512), (3, 512),
@@ -145,14 +147,15 @@ class SmallCNN(nn.Module):
 MODELS = {"vgg16": VGG16, "small": SmallCNN}
 
 
-def build_model(name: str, input_shape: tuple[int, int, int], device=None,
-                **kwargs) -> nn.Module:
+def build_model(name: str, input_shape: tuple[int, int, int],
+                device: torch.device | str = "cuda", **kwargs) -> nn.Module:
     """The model ``name`` ("vgg16" or "small") for ``input_shape`` images,
-    in eval mode (dropout off)."""
+    in eval mode (dropout off), on ``device`` (the card unless the caller
+    asks for "cpu"; "cuda" without a card raises RuntimeError)."""
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")
-    return MODELS[name](input_shape=tuple(input_shape), device=device,
-                        **kwargs).eval()
+    return MODELS[name](input_shape=tuple(input_shape),
+                        device=resolve_device(device), **kwargs).eval()
 
 
 @torch.no_grad()

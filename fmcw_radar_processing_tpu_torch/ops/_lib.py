@@ -26,15 +26,16 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fast_time_profile.cu", "stft_export.cu", "stft_export_tiled.cu",
-           "detect.cu")
+SOURCES = ("fast_time_profile.cu", "fast_time_profile_b3.cu",
+           "stft_export.cu", "stft_export_tiled.cu", "detect.cu")
 HEADERS = ("export_common.cuh",)
 # No --use_fast_math: it flushes subnormals to zero (the 1e-45 floor of the
 # dB map is subnormal) and swaps in approximate logf/sqrtf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fast_time_profile": 0, "psd_phase1": 0, "db_rescale": 0,
+LAUNCHES = {"fast_time_profile_b3": 0, "fast_time_profile": 0,
+            "psd_phase1": 0, "db_rescale": 0,
             "psd_phase1_tiled": 0, "db_rescale_tiled": 0, "fast_time": 0,
             "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0}
 
@@ -104,6 +105,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fast_time_profile_launch.argtypes = [p, p, p, p, i, i, p]
     lib.fast_time_profile_launch.restype = i
+    lib.fast_time_profile_b3_launch.argtypes = [p, p, p, p, p, i, i, p]
+    lib.fast_time_profile_b3_launch.restype = i
     lib.psd_phase1_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.psd_phase1_launch.restype = i
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,

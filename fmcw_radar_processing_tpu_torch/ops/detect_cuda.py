@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.detection import (
     DetectionResult,
     gate_mask,

@@ -1,22 +1,28 @@
-"""K1 and K6: fused fast-time range DFT + magnitude + max over chirps.
+"""K1a, K1b and K6: fused fast-time range DFT + magnitude + max over chirps.
 
-Two wrappers over the kernel of ``csrc/fast_time_profile.cu``:
+Three wrappers:
 
-  K1 :func:`fast_time_profile` — the profile [F, K] only (replaces the JAX
-     package's Pallas ``ops/fast_time_pallas.py::_profile_kernel_b3`` and
-     ``_profile_kernel``);
-  K6 :func:`fast_time` — the range FFT [F, PN, K, 2] stored as well
-     (replaces ``ops/fast_time_pallas.py::_kernel``, impl "pallas").
+  K1a :func:`fast_time_profile_b3` — the profile [F, K] only, as the bf16x3
+      product on the tensor cores (``csrc/fast_time_profile_b3.cu``;
+      replaces the JAX package's Pallas
+      ``ops/fast_time_pallas.py::_profile_kernel_b3``, impl
+      "pallas_profile_high", the production class);
+  K1b :func:`fast_time_profile` — the same profile at exact float32 on the
+      CUDA cores (``csrc/fast_time_profile.cu``; replaces
+      ``_profile_kernel``, impl "pallas_profile", the HIGHEST class);
+  K6  :func:`fast_time` — K1b's kernel storing the range FFT [F, PN, K, 2]
+      as well (replaces ``ops/fast_time_pallas.py::_kernel``, impl
+      "pallas").
 
 Each launches its kernel for CUDA tensors and runs its plain PyTorch
-version (:func:`fast_time_profile_ref`, :func:`fast_time_ref`) for CPU
-tensors. Neither falls back: on a CUDA tensor it launches or raises.
+version (:func:`fast_time_profile_b3_ref`, :func:`fast_time_profile_ref`,
+:func:`fast_time_ref`) for CPU tensors. None falls back: on a CUDA tensor
+it launches or raises.
 
-The kernel takes the BLOCKED packed weight of
+The kernels take the BLOCKED packed weight of
 :func:`_packed_blocked_weight` (columns [:K] give the real part of each
 bin, [K:] the imaginary part), not ``PackedFastTime.w``'s interleaved
-columns. It computes at exact float32, which meets both precision classes
-of the TPU kernels ("high" = bf16x3 and "highest").
+columns; K1a takes it split into bf16 halves by :func:`split_bf16x3`.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.fast_time import (
     build_fast_time_matrix,
     range_profile,
@@ -50,7 +56,7 @@ def _packed_blocked_weight(m) -> np.ndarray:
 
 
 def blocked_weight(cfg: RadarConfig,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
+                   device: torch.device | str) -> torch.Tensor:
     """The blocked packed weight [2·NTS, 2·K] float32 on ``device``."""
     return torch.as_tensor(_packed_blocked_weight(build_fast_time_matrix(cfg)),
                            device=device)
@@ -60,6 +66,30 @@ def calib_offset(calib: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """off = calib · W [2·K] at exact float32 (calib: [NTS, 2] pair)."""
     pin_f32_matmul()
     return (calib.to(torch.float32).reshape(1, -1) @ w).reshape(-1)
+
+
+def split_bf16x3(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w_hi, w_lo) bf16 on w's device: w_hi = bf16(w), w_lo = bf16(w −
+    w_hi), both round to nearest even — the TPU kernel's weight split."""
+    w_hi = w.to(torch.bfloat16)
+    return w_hi, (w - w_hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def fast_time_profile_b3_ref(x: torch.Tensor, w_hi: torch.Tensor,
+                             w_lo: torch.Tensor, off: torch.Tensor,
+                             pn: int) -> torch.Tensor:
+    """Plain version of K1a: x_hi = bf16(x), x_lo = bf16(x − x_hi), then
+    x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off as three float32 matmuls
+    (every product of two bf16 values is exact in float32), |·| and the
+    max over the PN chirps of each frame → profile [F, K]."""
+    pin_f32_matmul()
+    k = w_hi.shape[1] // 2
+    x_hi = x.to(torch.bfloat16).to(torch.float32)
+    x_lo = (x - x_hi).to(torch.bfloat16).to(torch.float32)
+    wh, wl = w_hi.to(torch.float32), w_lo.to(torch.float32)
+    y = x_hi @ wh + x_lo @ wh + x_hi @ wl - off
+    mag = torch.sqrt(y[:, :k] * y[:, :k] + y[:, k:] * y[:, k:])
+    return mag.reshape(-1, pn, k).amax(dim=1)
 
 
 def fast_time_profile_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
@@ -84,7 +114,8 @@ def fast_time_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
     return rf, range_profile(rf)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor, pn: int):
+def _check(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor, pn: int,
+           w_dtype: torch.dtype = torch.float32):
     if pn != KERNEL_PN:
         raise ValueError(f"the fast-time kernel takes PN={KERNEL_PN}, "
                          f"got {pn}")
@@ -98,15 +129,46 @@ def _check(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor, pn: int):
                          f"w {tuple(w.shape)}, off {tuple(off.shape)}")
     if rows % pn:
         raise ValueError(f"rows {rows} are not whole frames of {pn} chirps")
-    for name, t in (("x", x), ("w", w), ("off", off)):
+    for name, t in (("x", x), ("off", off)):
         _lib.check_operand(name, t, x.device, torch.float32)
+    _lib.check_operand("w", w, x.device, w_dtype)
+
+
+def fast_time_profile_b3(x: torch.Tensor, w_hi: torch.Tensor,
+                         w_lo: torch.Tensor, off: torch.Tensor,
+                         pn: int) -> torch.Tensor:
+    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS], bf16x3 class.
+
+    w_hi, w_lo: :func:`split_bf16x3` of the blocked weight. CPU tensors:
+    the plain version. CUDA tensors: the K1a kernel.
+    """
+    if x.device.type == "cpu":
+        return fast_time_profile_b3_ref(x, w_hi, w_lo, off, pn)
+    lib = _lib.load_kernels()
+    if w_lo.shape != w_hi.shape:
+        raise ValueError(f"w_hi {tuple(w_hi.shape)} and w_lo "
+                         f"{tuple(w_lo.shape)} differ")
+    _check(x, w_hi, off, pn, torch.bfloat16)
+    _lib.check_operand("w_lo", w_lo, x.device, torch.bfloat16)
+    rows = x.shape[0]
+    k = w_hi.shape[1] // 2
+    prof = torch.empty((rows // pn, k), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return prof
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.fast_time_profile_b3_launch(x.data_ptr(), w_hi.data_ptr(),
+                                         w_lo.data_ptr(), off.data_ptr(),
+                                         prof.data_ptr(), rows, k, stream)
+    _lib.check_launch("fast_time_profile_b3", rc)
+    return prof
 
 
 def fast_time_profile(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
                       pn: int) -> torch.Tensor:
-    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS].
+    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS], exact
+    float32.
 
-    CPU tensors: the plain version. CUDA tensors: the K1 kernel.
+    CPU tensors: the plain version. CUDA tensors: the K1b kernel.
     """
     if x.device.type == "cpu":
         return fast_time_profile_ref(x, w, off, pn)

@@ -62,12 +62,12 @@ from fmcw_radar_processing_tpu_torch.ops import _lib
 from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
 
 PSD_TILE = 1024  # columns per K2 and K4a block; t_pad is a multiple of it
-DB_TILE = 128  # columns per K3 block
+DB_TILE = 64  # columns per K3 tile
 DB_TILED_TILE = 32  # columns per K4b block
 BIN_BLOCK = 128  # bins per K4a/K4b bin block
 WINDOW = 20  # the window length the kernels are built for
 # nb_pad ceiling of the untiled kernels: nfft 512 under the bf16 store's
-# 16-alignment. K3 keeps an nb_pad × 128 float32 dB tile in shared memory
+# 16-alignment. K3 keeps two nb_pad × 64 float32 dB tiles in shared memory
 # (139 KB here; 227 KB is the most a block may have). Past it,
 # :func:`spectrogram` takes the bin-blocked pair K4a/K4b.
 UNTILED_MAX_BINS = 272

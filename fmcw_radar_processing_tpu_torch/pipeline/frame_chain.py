@@ -5,15 +5,15 @@ every stage is batched over the [F, PN, 2·NTS] recording. Two
 formulations, chosen by ``impl`` as in the JAX package's
 ``make_frame_chain``:
 
-  the profile chain ("auto", "pallas_profile", "pallas_profile_high"):
-    1. profile [F, K]: kernel K1 (ops/fast_time_cuda.py) — range DFT, |·|
-       and the max over chirps, without writing the range-FFT cube;
+  the profile chain ("pallas_profile", "pallas_profile_high"):
+    1. profile [F, K] — range DFT, |·| and the max over chirps, without
+       writing the range-FFT cube (ops/fast_time_cuda.py): kernel K1a,
+       the bf16x3 product on the tensor cores, for "pallas_profile_high";
+       kernel K1b, exact float32, for "pallas_profile";
     2. peak search (dsp/detection.py);
     3. the detected bins' chirp rows, recomputed with a gathered-weight
        matmul (PackedFastTime.rf_at_bins), then a 16-point Doppler matmul
        at those bins only and the Doppler peak / measurements.
-    K1 is exact float32, so one formulation serves both the production
-    impl "pallas_profile_high" and the fidelity impl "pallas_profile".
     With ``return_range_fft`` these impls take the JAX package's plain
     branch instead: the cube by one matmul (PackedFastTime.rf), then
     range_profile and search_peaks.
@@ -24,8 +24,11 @@ formulations, chosen by ``impl`` as in the JAX package's
     2. peak search: kernel K7 (ops/detect_cuda.py);
     3. the Doppler rows and the strongest chirp gathered from the cube.
 
-The JAX impls "fused", "xla", "fused_bf16" and "pallas_profile_bf16" are
-not ported (ROADMAP.md, Queue 1).
+"auto" resolves by device, as the JAX package's resolve_impl does by
+backend: "pallas_profile_high" on the card, the exact "pallas_profile" on
+the CPU (the counterpart of the JAX package's exact "fused" there). The
+JAX impls "fused", "xla", "fused_bf16" and "pallas_profile_bf16" are not
+ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.detection import DetectionResult, search_peaks
 from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime, range_profile
 from fmcw_radar_processing_tpu_torch.dsp.slow_time import (
@@ -50,8 +53,10 @@ from fmcw_radar_processing_tpu_torch.ops.fast_time_cuda import (
     calib_offset,
     fast_time,
     fast_time_profile,
+    fast_time_profile_b3,
+    split_bf16x3,
 )
-from fmcw_radar_processing_tpu_torch.utils.cplx import pair_matmul
+from fmcw_radar_processing_tpu_torch.utils.cplx import pair_matmul, resolve_device
 
 PROFILE_IMPLS = ("pallas_profile", "pallas_profile_high")
 UNPORTED_IMPLS = ("fused", "xla", "fused_bf16", "pallas_profile_bf16")
@@ -74,12 +79,14 @@ class FrameChainOutputs(NamedTuple):
     # requested
 
 
-def resolve_impl(impl: str) -> str:
-    """The impl a chain runs: "auto" is the profile chain on every device
-    (its CPU run takes the kernels' plain versions). Raises ValueError for
-    an unknown impl and NotImplementedError for a JAX impl not ported."""
+def resolve_impl(impl: str, device: torch.device | str) -> str:
+    """The impl a chain on ``device`` runs: "auto" is "pallas_profile_high"
+    (bf16x3, K1a) on the card and "pallas_profile" (exact float32) on the
+    CPU. Raises ValueError for an unknown impl and NotImplementedError for
+    a JAX impl not ported."""
     if impl == "auto":
-        impl = "pallas_profile_high"
+        impl = ("pallas_profile_high" if torch.device(device).type == "cuda"
+                else "pallas_profile")
     if impl in UNPORTED_IMPLS:
         raise NotImplementedError(
             f"impl {impl!r} is not ported to PyTorch (ROADMAP.md, Queue 1); "
@@ -91,19 +98,26 @@ def resolve_impl(impl: str) -> str:
 
 
 def make_frame_chain(
-    cfg: RadarConfig, device: torch.device | str = "cpu",
+    cfg: RadarConfig, device: torch.device | str = "cuda",
     return_range_fft: bool = False, impl: str = "auto",
 ) -> Callable[[torch.Tensor, torch.Tensor], FrameChainOutputs]:
-    """Build the recording chain for a fixed config on ``device``.
+    """Build the recording chain for a fixed config on ``device`` (the card
+    unless the caller asks for "cpu"; "cuda" without a card raises
+    RuntimeError).
 
     Returns fn(raw [F, PN, 2·NTS] float32, calib [NTS, 2] float32) ->
     FrameChainOutputs, both inputs on ``device``. ``range_fft`` is the
     [F, PN, K, 2] cube when ``return_range_fft``, else None.
     """
-    impl = resolve_impl(impl)
+    device = resolve_device(device)
+    impl = resolve_impl(impl, device)
     pft = PackedFastTime.create(cfg, device)
     st = SlowTimeOperator.create(cfg, device)
     w_blocked = blocked_weight(cfg, device)
+    # K1a's bf16 halves of the weight, split once per chain on the device,
+    # only for the chain that runs K1a.
+    if impl == "pallas_profile_high" and not return_range_fft:
+        w_hi, w_lo = split_bf16x3(w_blocked)
     pn, nts = cfg.pn, cfg.nts
 
     def chain(raw: torch.Tensor, calib: torch.Tensor) -> FrameChainOutputs:
@@ -116,10 +130,12 @@ def make_frame_chain(
             det = search_peaks_fused(profile, cfg)  # [F, T]
         elif not return_range_fft:
             x = raw.reshape(f * pn, 2 * nts)
-            profile = fast_time_profile(x, w_blocked,
-                                        calib_offset(calib, w_blocked),
-                                        pn)  # [F, K], rf never materialized
-            det = search_peaks(profile, cfg)  # [F, T]
+            off = calib_offset(calib, w_blocked)
+            if impl == "pallas_profile_high":
+                profile = fast_time_profile_b3(x, w_hi, w_lo, off, pn)
+            else:
+                profile = fast_time_profile(x, w_blocked, off, pn)
+            det = search_peaks(profile, cfg)  # [F, T]; rf never materialized
         else:
             rf = pft.rf(raw, calib)  # [F, PN, K, 2]
             profile = range_profile(rf)  # [F, K]

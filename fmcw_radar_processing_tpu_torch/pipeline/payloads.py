@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 
 
 def spectrogram_payload(

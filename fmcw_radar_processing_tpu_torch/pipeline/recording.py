@@ -16,8 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
-from fmcw_radar_processing_tpu.config.radar import next_pow2
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config.radar import next_pow2
 from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime
 from fmcw_radar_processing_tpu_torch.dsp.stft import (
     StftOperator,
@@ -40,6 +40,7 @@ from fmcw_radar_processing_tpu_torch.pipeline.payloads import (
 from fmcw_radar_processing_tpu_torch.utils.cplx import (
     pair_abs,
     pin_f32_matmul,
+    resolve_device,
     to_pair,
 )
 from fmcw_radar_processing_tpu_torch.utils.observe import NullTimer
@@ -101,19 +102,19 @@ class ActivityBatchOutput:
 class RadarPipeline:
     """The recording pipeline for a fixed RadarConfig on one device.
 
+    device: "cuda" by default; "cpu" runs the kernels' plain versions.
+    Raises RuntimeError for "cuda" without a card.
+
     impl: the frame chain's formulation (pipeline/frame_chain.py): "auto"
-    (the profile chain, K1), "pallas" (the materializing chain, K6 + K7),
-    or the JAX names of the profile chain, "pallas_profile" and
-    "pallas_profile_high".
+    (the profile chain: bf16x3 K1a on the card, the exact plain version on
+    the CPU), "pallas" (the materializing chain, K6 + K7), or the JAX names
+    of the profile chain, "pallas_profile" (exact, K1b) and
+    "pallas_profile_high" (bf16x3, K1a).
     """
 
     def __init__(self, cfg: RadarConfig, filename: str = "radar_data",
-                 device: torch.device | str = "cpu", impl: str = "auto"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False")
+                 device: torch.device | str = "cuda", impl: str = "auto"):
+        self.device = resolve_device(device)
         a = cfg.algorithm
         if (a.stft_hop or 1) != 1:
             raise NotImplementedError("only hop 1 is ported (stft_hop=None)")

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fmcw_radar_processing_tpu.config import RadarConfig
+from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator, psd_db
 from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
     make_frame_chain,

@@ -21,8 +21,8 @@ import sys
 
 
 def cmd_process(args) -> int:
-    from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig
-    from fmcw_radar_processing_tpu.utils.jsonio import write_json
+    from fmcw_radar_processing_tpu_torch.config import AlgorithmConfig, RadarConfig
+    from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json
     from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
     from fmcw_radar_processing_tpu_torch.pipeline.spectrogram_image import (
         render_spectrogram_png,
@@ -67,9 +67,9 @@ def cmd_process(args) -> int:
 
 
 def cmd_synth(args) -> int:
-    from fmcw_radar_processing_tpu.config import RadarConfig, default_device_config
-    from fmcw_radar_processing_tpu.io.raw_format import write_recording
-    from fmcw_radar_processing_tpu.io.synth import (
+    from fmcw_radar_processing_tpu_torch.config import RadarConfig, default_device_config
+    from fmcw_radar_processing_tpu_torch.io.raw_format import write_recording
+    from fmcw_radar_processing_tpu_torch.io.synth import (
         SyntheticTarget,
         synthesize_recording,
     )
@@ -123,7 +123,7 @@ def cmd_classify(args) -> int:
 
 
 def cmd_config(args) -> int:
-    from fmcw_radar_processing_tpu.config import (
+    from fmcw_radar_processing_tpu_torch.config import (
         RadarConfig,
         device_config_from_xml_file,
     )

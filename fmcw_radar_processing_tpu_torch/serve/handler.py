@@ -20,10 +20,10 @@ import os
 import time
 from typing import Any, Callable
 
-from fmcw_radar_processing_tpu.config import AlgorithmConfig, RadarConfig
-from fmcw_radar_processing_tpu.io.raw_format import read_recording
-from fmcw_radar_processing_tpu.io.storage import Storage, get_storage
-from fmcw_radar_processing_tpu.utils.jsonio import write_json
+from fmcw_radar_processing_tpu_torch.config import AlgorithmConfig, RadarConfig
+from fmcw_radar_processing_tpu_torch.io.raw_format import read_recording
+from fmcw_radar_processing_tpu_torch.io.storage import Storage, get_storage
+from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.spectrogram_image import (
     render_spectrogram_png,

@@ -10,12 +10,26 @@ decimal digits) when ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.backends.cudnn.allow_tf32`` is on — the GPU form of the TPU's
 DEFAULT-precision trap. :func:`pin_f32_matmul` turns both off and checks
 it; every contraction here runs at true float32.
+
+:func:`resolve_device` is how the entry points take their device: the
+card by default, an error rather than the CPU when there is none.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a torch.device; raises RuntimeError for a CUDA device
+    when no card is available (the entry points default to "cuda" and
+    never fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but "
+                           "torch.cuda.is_available() is False")
+    return dev
 
 
 def pin_f32_matmul() -> None:

@@ -78,7 +78,7 @@ def test_logits_match_flax(name, dtype):
     x = _images(6)
     want = np.asarray(cls(dtype=getattr(jnp, dtype), **kw).apply(
         {"params": params}, x, train=False), np.float32)
-    model = build_model(name, SHAPE, dtype=getattr(torch, dtype), **kw)
+    model = build_model(name, SHAPE, "cpu", dtype=getattr(torch, dtype), **kw)
     model.load_state_dict(params_from_flax(name, params, SHAPE, **kw))
     with torch.no_grad():
         got = model(torch.as_tensor(x)).float().numpy()
@@ -140,10 +140,10 @@ def test_artifact_round_trip(artifact):
         meta = json.load(f)
     assert meta == {"model": "small", "input_shape": list(SHAPE),
                     "classes": list(CLASSES), "normalization": "1/255"}
-    clf = SpectrogramClassifier.load(path)
+    clf = SpectrogramClassifier.load(path, "cpu")
     assert clf.classes == CLASSES and clf.input_shape == SHAPE
     x = _images(7, seed=5)
-    direct = SpectrogramClassifier("small", params, SHAPE, CLASSES)
+    direct = SpectrogramClassifier("small", params, SHAPE, CLASSES, "cpu")
     np.testing.assert_array_equal(clf.predict_proba(x), direct.predict_proba(x))
     # And the JAX classifier on the same parameters (bf16 forward).
     want = JaxClassifier("small", params, SHAPE, CLASSES).predict_proba(x)
@@ -166,7 +166,7 @@ def test_bucketed_batching(artifact):
     give the same per-image results: bf16 convolutions may sum in another
     order at another batch size, hence 5e-4 (the JAX test's bound)."""
     path, _ = artifact
-    clf = SpectrogramClassifier.load(path)
+    clf = SpectrogramClassifier.load(path, "cpu")
     assert [_bucket(n) for n in (1, 3, 5, 64, 67)] == [1, 4, 8, 64, 64]
     x = _images(67, seed=9)
     big = clf.predict_proba(x)
@@ -179,7 +179,7 @@ def test_bucketed_batching(artifact):
 
 
 def test_shape_mismatch_and_missing_artifact(artifact, tmp_path):
-    clf = SpectrogramClassifier.load(artifact[0])
+    clf = SpectrogramClassifier.load(artifact[0], "cpu")
     with pytest.raises(ValueError, match="expected images of shape"):
         clf.predict_proba(np.zeros((1, 8, 8, 3), np.float32))
     with pytest.raises(FileNotFoundError, match="not a classifier artifact"):
@@ -188,7 +188,7 @@ def test_shape_mismatch_and_missing_artifact(artifact, tmp_path):
 
 def test_decode_and_schema_match_jax(artifact):
     path, params = artifact
-    clf = SpectrogramClassifier.load(path)
+    clf = SpectrogramClassifier.load(path, "cpu")
     ref = JaxClassifier("small", params, SHAPE, CLASSES)
     img = np.random.default_rng(1).uniform(0, 1, (40, 52, 3))
     blob = _png_bytes(img)

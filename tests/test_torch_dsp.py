@@ -60,13 +60,13 @@ def test_fast_and_slow_time_builders_bit_equal(algo):
     cfg = _cfg(**algo)
     m = tft.build_fast_time_matrix(cfg)
     np.testing.assert_array_equal(m, jft.build_fast_time_matrix(cfg))
-    np.testing.assert_array_equal(tft.PackedFastTime.create(cfg).w,
+    np.testing.assert_array_equal(tft.PackedFastTime.create(cfg, "cpu").w,
                                   jft.PackedFastTime.create(cfg).w)
     np.testing.assert_array_equal(tftc._packed_blocked_weight(m),
                                   jftp._packed_blocked_weight(m))
     np.testing.assert_array_equal(tst.build_slow_time_matrix(cfg),
                                   jst.build_slow_time_matrix(cfg))
-    op_t, op_j = tst.SlowTimeOperator.create(cfg), jst.SlowTimeOperator.create(cfg)
+    op_t, op_j = tst.SlowTimeOperator.create(cfg, "cpu"), jst.SlowTimeOperator.create(cfg)
     np.testing.assert_array_equal(op_t.m_re, op_j.m_re)
     np.testing.assert_array_equal(op_t.m_im, op_j.m_im)
 
@@ -190,7 +190,7 @@ def test_packed_fast_time_matches_jax():
     raw = rng.standard_normal((3, cfg.pn, 2 * cfg.nts)).astype(np.float32)
     calib = rng.standard_normal((cfg.nts, 2)).astype(np.float32)
     idx = rng.integers(0, cfg.range_fft_size, (3, 2)).astype(np.int32)
-    pt, pj = tft.PackedFastTime.create(cfg), jft.PackedFastTime.create(cfg)
+    pt, pj = tft.PackedFastTime.create(cfg, "cpu"), jft.PackedFastTime.create(cfg)
     r_t, c_t = torch.as_tensor(raw), torch.as_tensor(calib)
     np.testing.assert_allclose(pt.rf(r_t, c_t).numpy(),
                                np.asarray(pj.rf(jnp.asarray(raw), jnp.asarray(calib))),

@@ -1,4 +1,4 @@
-"""PyTorch port: the kernel modules (K1, K2, K3; K4 in test_torch_fidelity.py;
+"""PyTorch port: the kernel modules (K1a, K1b, K2, K3; K4 in test_torch_fidelity.py;
 K5, K6, K7 in test_torch_materialize.py) vs the JAX package's Pallas
 kernels, run in interpret mode on the CPU as the JAX tests run them.
 
@@ -96,10 +96,107 @@ def test_k1_plain_matches_pallas(cfg, seed):
     np.testing.assert_allclose(got, highest, rtol=1e-5, atol=1e-2)
 
 
+def _k1a_port(cfg, raw, calib, device="cpu"):
+    w, off, x = _k1_port(cfg, raw, calib, device)
+    return (*ftc.split_bf16x3(w), off, x)
+
+
+def _b3_split_f64(x: np.ndarray, w: np.ndarray) -> tuple:
+    """The TPU kernel's split as its bf16 MXU passes round it (x_lo and
+    w_lo to bf16 as well), products and sums in float64."""
+    def bf16(a):
+        return torch.as_tensor(a).to(torch.bfloat16).to(torch.float32).numpy()
+
+    x_hi, w_hi = bf16(x), bf16(w)
+    return (x_hi.astype(np.float64), bf16(x - x_hi).astype(np.float64),
+            w_hi.astype(np.float64), bf16(w - w_hi).astype(np.float64))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1a_plain_matches_pallas_b3(cfg, seed):
+    """K1a's plain version vs _profile_kernel_b3 ("high"). Against the
+    split as the TPU's bf16 passes round it, in float64: rtol 1e-5 / atol
+    1e-3 (the sums run in another order; the split is the same). Against
+    the Pallas kernel in interpret mode, whose CPU dots keep x_lo and w_lo
+    in float32 where the MXU rounds them to bf16: within that rounding,
+    2^-16 · max(|x|·|W|), and above 100 dB SNR."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(seed))
+    w_hi, w_lo, off, x = _k1a_port(cfg, raw, calib)
+    got = ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn).numpy()
+    assert got.shape == (raw.shape[0], cfg.range_fft_size)
+    w = ftc.blocked_weight(cfg, "cpu").numpy()
+    x_hi, x_lo, wh, wl = _b3_split_f64(x.numpy(), w)
+    k = cfg.range_fft_size
+    y = x_hi @ wh + x_lo @ wh + x_hi @ wl - off.numpy().astype(np.float64)
+    emu = np.sqrt(y[:, :k] ** 2 + y[:, k:] ** 2).reshape(-1, cfg.pn, k).max(1)
+    np.testing.assert_allclose(got, emu, rtol=1e-5, atol=1e-3)
+    high = np.asarray(jftp.fast_time_profile_pallas(
+        jnp.asarray(raw), jnp.asarray(calib), cfg, precision="high"))
+    bound = 2.0 ** -16 * float((np.abs(x.numpy()) @ np.abs(w)).max())
+    assert np.abs(got - high).max() <= bound
+    assert _snr_db(got, high) > 100.0
+
+
+def test_k1a_plain_snr_vs_exact(cfg):
+    """bf16x3 against the exact float32 profile: above 100 dB (JAX records
+    110.1 dB for this class on the TPU)."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(2), f=24)
+    w_hi, w_lo, off, x = _k1a_port(cfg, raw, calib)
+    got = ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn).numpy()
+    w, _, _ = _k1_port(cfg, raw, calib)
+    exact = ftc.fast_time_profile(x, w, off, cfg.pn).numpy()
+    assert _snr_db(got, exact) > 100.0
+
+
+def test_split_bf16x3_is_the_jax_split(cfg):
+    """w_hi = bf16(W) exactly as the JAX package splits it on the host;
+    w_lo the bf16 of its float32 remainder; hi + lo within 2^-16 of W."""
+    w = ftc.blocked_weight(cfg, "cpu")
+    w_hi, w_lo = ftc.split_bf16x3(w)
+    assert w_hi.dtype == w_lo.dtype == torch.bfloat16
+    w_np = w.numpy()
+    j_hi = np.asarray(jnp.asarray(w_np).astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(w_hi.float().numpy(), j_hi)
+    j_lo = np.asarray(jnp.asarray(w_np - j_hi).astype(jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(w_lo.float().numpy(), j_lo)
+    rec = w_hi.float() + w_lo.float()
+    assert float((rec - w).abs().max()) <= 2.0 ** -16 * float(w.abs().max())
+
+
+def test_k1a_chain_matches_jax_pallas_profile_high(cfg, rng):
+    """RadarPipeline(impl="pallas_profile_high") on the CPU (K1a's plain
+    version) vs the JAX pipeline's impl "pallas_profile_high": detections
+    exact, ranges rtol 1e-6, waterfall above 80 dB (as
+    tests/test_pallas_chain.py holds the JAX impl to its f32 chain)."""
+    from fmcw_radar_processing_tpu.pipeline.recording import RadarPipeline as JaxPipeline
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+
+    from .test_pipeline import _mixed_recording, _tpu_layout
+
+    frames, calib = _mixed_recording(cfg, rng, f=12)
+    got = RadarPipeline(cfg, device="cpu", impl="pallas_profile_high"
+                        ).process_recording(_tpu_layout(frames), calib)
+    want = JaxPipeline(cfg, impl="pallas_profile_high").process_recording(
+        _tpu_layout(frames), calib)
+    exact = RadarPipeline(cfg, device="cpu", impl="pallas_profile"
+                          ).process_recording(_tpu_layout(frames), calib)
+    np.testing.assert_array_equal(got.detected, want.detected)
+    assert got.detected.any()
+    np.testing.assert_allclose(got.target_range, want.target_range, rtol=1e-6)
+    np.testing.assert_allclose(got.target_speed, want.target_speed,
+                               rtol=1e-5, atol=1e-6)
+    assert _snr_db(got.waterfall, want.waterfall) > 80.0
+    # Against the exact chain: detections, ranges and speeds equal.
+    np.testing.assert_array_equal(got.detected, exact.detected)
+    np.testing.assert_array_equal(got.target_range, exact.target_range)
+    np.testing.assert_array_equal(got.target_speed, exact.target_speed)
+    assert _snr_db(got.waterfall, exact.waterfall) > 100.0
+
+
 def test_k1_offset_is_exact_f32(cfg, rng):
     """off = calib·W at float32 against a float64 product."""
     calib = to_pair(rng.standard_normal(cfg.nts) + 1j * rng.standard_normal(cfg.nts))
-    w = ftc.blocked_weight(cfg)
+    w = ftc.blocked_weight(cfg, "cpu")
     off = ftc.calib_offset(torch.as_tensor(calib), w).numpy()
     want = calib.reshape(1, -1).astype(np.float64) @ w.numpy().astype(np.float64)
     np.testing.assert_allclose(off, want[0], rtol=1e-5, atol=1e-3)
@@ -219,6 +316,13 @@ def test_wrappers_raise_without_kernel_library(cfg, monkeypatch, tmp_path):
         ftc.fast_time_profile(torch.empty(32, 128, **meta),
                               torch.empty(128, 512, **meta),
                               torch.empty(512, **meta), 16)
+    monkeypatch.setattr(ftc, "fast_time_profile_b3_ref", _fail_if_called)
+    bf16 = dict(device="meta", dtype=torch.bfloat16)
+    with pytest.raises(_lib.KernelBuildError, match="nvcc"):
+        ftc.fast_time_profile_b3(torch.empty(32, 128, **meta),
+                                 torch.empty(128, 512, **bf16),
+                                 torch.empty(128, 512, **bf16),
+                                 torch.empty(512, **meta), 16)
     with pytest.raises(_lib.KernelBuildError):
         stc.psd_phase1(torch.empty(2000, **meta), 1981,
                        torch.empty(288, 20, **meta), 144, 2048)
@@ -421,6 +525,38 @@ def test_fast_time_dispatch_on_device_tensors(monkeypatch, f):
     assert _launch_deltas(before) == {k: int(k == "fast_time") for k in before}
 
 
+@pytest.mark.parametrize("f", [12, 9])
+def test_fast_time_profile_b3_dispatch_on_device_tensors(monkeypatch, f):
+    """K1a on a device tensor: one fast_time_profile_b3 launch (rows, K)
+    with both weight halves, a [F, K] profile, never the plain version;
+    the arguments the kernel does not take raise before any launch."""
+    stub = _stub_library(monkeypatch)
+    monkeypatch.setattr(ftc, "fast_time_profile_b3_ref", _fail_if_called)
+    before = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    bf16 = dict(device="meta", dtype=torch.bfloat16)
+    x = torch.empty(f * 16, 128, **meta)
+    w_hi, w_lo = torch.empty(128, 512, **bf16), torch.empty(128, 512, **bf16)
+    off = torch.empty(512, **meta)
+    prof = ftc.fast_time_profile_b3(x, w_hi, w_lo, off, 16)
+    assert prof.shape == (f, 256) and prof.dtype == torch.float32
+    (name, args), = stub.calls
+    assert name == "fast_time_profile_b3_launch" and args[5:7] == (f * 16, 256)
+    assert args[1:3] == (w_hi.data_ptr(), w_lo.data_ptr())
+    assert _launch_deltas(before) == {
+        k: int(k == "fast_time_profile_b3") for k in before}
+    for bad in (dict(pn=8), dict(x=torch.empty(f * 16, 64, **meta)),
+                dict(w_lo=torch.empty(128, 256, **bf16)),
+                dict(w_hi=torch.empty(128, 448, **bf16),
+                     w_lo=torch.empty(128, 448, **bf16),
+                     off=torch.empty(448, **meta)),
+                dict(x=torch.empty(f * 16 + 8, 128, **meta))):
+        kw = dict(x=x, w_hi=w_hi, w_lo=w_lo, off=off, pn=16) | bad
+        with pytest.raises(ValueError):
+            ftc.fast_time_profile_b3(**kw)
+    assert len(stub.calls) == 1
+
+
 @pytest.mark.parametrize("targets", [1, 3])
 def test_search_peaks_fused_dispatch_on_device_tensors(monkeypatch, targets):
     """K7 on a device tensor: one launch with the float32 threshold, frames,
@@ -516,11 +652,32 @@ def test_k1_kernel_matches_plain(cfg, cuda_device, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f", [12, 9, 1000])  # 9: not a whole row tile
+def test_k1a_kernel_matches_plain(cfg, cuda_device, f):
+    """K1a vs its plain version (rtol 1e-5 / atol 1e-2) and vs the exact
+    profile (above 100 dB)."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(3), f=f)
+    w_hi, w_lo, off, x = _k1a_port(cfg, raw, calib, cuda_device)
+    before = _lib.LAUNCHES["fast_time_profile_b3"]
+    got = ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fast_time_profile_b3"] == before + 1
+    want = ftc.fast_time_profile_b3_ref(x, w_hi, w_lo, off, cfg.pn)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-2)
+    w, _, _ = _k1_port(cfg, raw, calib, cuda_device)
+    exact = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+    assert _snr_db(got.cpu().numpy(), exact.cpu().numpy()) > 100.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("l,count", [(4096, 1000), (70_000, 69_000)])
-def test_k2_k3_kernels_match_plain(cuda_device, int_dtype, l, count):
+@pytest.mark.parametrize("nfft,l,count", [
+    (256, 4096, 1000), (256, 70_000, 69_000),
+    (512, 70_000, 40_000),  # nb_pad 264/272: K3's 64-column tiles
+])
+def test_k2_k3_kernels_match_plain(cuda_device, int_dtype, nfft, l, count):
     sig = torch.as_tensor(_signal(l, count), device=cuda_device)
-    op = StftOperator.create(**OP_KW)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
     db_dtype = torch.bfloat16 if int_dtype == torch.bfloat16 else torch.float32
     align = 16 if db_dtype == torch.bfloat16 else 8
     nb, nb_pad = op.num_bins, -(-op.num_bins // align) * align

@@ -1,0 +1,289 @@
+"""PyTorch port: its own config, I/O and JSON modules against the JAX
+package's, its independence from the JAX package, the card as the default
+device of its entry points, and "auto" resolved by device.
+
+The port keeps copies of the JAX package's jax-free modules (config, io,
+utils.jsonio): these tests hold the copies to the originals field for
+field, array for array and byte for byte.
+"""
+
+import dataclasses
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fmcw_radar_processing_tpu import config as jconfig
+from fmcw_radar_processing_tpu.config import loaders as jloaders
+from fmcw_radar_processing_tpu.io import raw_format as jraw
+from fmcw_radar_processing_tpu.io import synth as jsynth
+from fmcw_radar_processing_tpu.utils import jsonio as jjson
+from fmcw_radar_processing_tpu.utils.cplx import to_pair as jto_pair
+from fmcw_radar_processing_tpu_torch import config as tconfig
+from fmcw_radar_processing_tpu_torch.config import loaders as tloaders
+from fmcw_radar_processing_tpu_torch.io import raw_format as traw
+from fmcw_radar_processing_tpu_torch.io import storage as tstorage
+from fmcw_radar_processing_tpu_torch.io import synth as tsynth
+from fmcw_radar_processing_tpu_torch.utils import jsonio as tjson
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _algos(mod):
+    return {
+        "production": mod.AlgorithmConfig.production(),
+        "fidelity": mod.AlgorithmConfig(),
+        "production_t3": mod.AlgorithmConfig.production(max_num_targets=3,
+                                                        stft_nfft=512),
+    }
+
+
+# --- the port imports nothing of the JAX package -----------------------------
+
+_IMPORT_SCRIPT = r"""
+import importlib, pkgutil, runpy, sys
+import fmcw_radar_processing_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_imported")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "fmcw_radar_processing_tpu"))
+print("modules", len(names), "bad", bad)
+assert len(names) > 30 and not bad
+"""
+
+
+def test_port_and_chip_smoke_load_no_jax_package_module():
+    """Every submodule of the port, and chip_smoke.py, imported in a fresh
+    process: sys.modules then holds no jax and no fmcw_radar_processing_tpu
+    module."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "bad []" in proc.stdout
+
+
+# --- config ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("profile", ["production", "fidelity", "production_t3"])
+def test_config_equals_jax_field_by_field(profile):
+    """RadarConfig.create(default_device_config(), ...) of both packages:
+    the same fields, values and types, derived included, and the same
+    canonical JSON."""
+    got = tconfig.RadarConfig.create(tconfig.default_device_config(),
+                                     _algos(tconfig)[profile])
+    want = jconfig.RadarConfig.create(jconfig.default_device_config(),
+                                      _algos(jconfig)[profile])
+    for part in ("device", "algorithm", "derived"):
+        g, w = getattr(got, part), getattr(want, part)
+        assert [f.name for f in dataclasses.fields(g)] == [
+            f.name for f in dataclasses.fields(w)]
+        for f in dataclasses.fields(w):
+            a, b = getattr(g, f.name), getattr(w, f.name)
+            assert type(a) is type(b) and a == b, (part, f.name, a, b)
+    assert got.to_json() == want.to_json()
+    assert (got.nts, got.pn, got.zero_doppler_bin) == (
+        want.nts, want.pn, want.zero_doppler_bin)
+    assert got.derived.speed_axis(16) == want.derived.speed_axis(16)
+    assert got.derived.range_axis(256) == want.derived.range_axis(256)
+
+
+def test_config_defaults_and_helpers_equal_jax():
+    """Every AlgorithmConfig default, next_pow2 and the XML round trip."""
+    assert dataclasses.asdict(tconfig.AlgorithmConfig()) == dataclasses.asdict(
+        jconfig.AlgorithmConfig())
+    assert [tconfig.next_pow2(n) for n in range(0, 5000, 7)] == [
+        jconfig.radar.next_pow2(n) for n in range(0, 5000, 7)]
+    dev = jconfig.default_device_config()
+    xml = jloaders.device_config_to_xml(dev)
+    assert tloaders.device_config_to_xml(tconfig.default_device_config()) == xml
+    assert dataclasses.asdict(tloaders.device_config_from_xml(xml)) == \
+        dataclasses.asdict(dev)
+    with pytest.raises(ValueError, match="numChirpsPerFrame"):
+        tloaders.device_config_from_xml(xml.replace("numChirpsPerFrame", "x"))
+
+
+# --- io ------------------------------------------------------------------------
+
+
+def _targets(mod):
+    return (mod.SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
+            mod.SyntheticTarget(range_m=16.9, doppler_bin_offset=-2,
+                                amplitude=2.0, md_phase_rad=0.4,
+                                md_rate_hz=1.5))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_synthesize_recording_equals_jax(seed):
+    present = np.random.default_rng(seed).random(20) > 0.2
+    got = tsynth.synthesize_recording(
+        tconfig.RadarConfig.create(tconfig.default_device_config()), 20,
+        _targets(tsynth), seed=seed, target_present=present)
+    want = jsynth.synthesize_recording(
+        jconfig.RadarConfig.create(jconfig.default_device_config()), 20,
+        _targets(jsynth), seed=seed, target_present=present)
+    for name in ("frames", "calib"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert dataclasses.asdict(got.device) == dataclasses.asdict(want.device)
+    cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
+    jcfg = jconfig.RadarConfig.create(jconfig.default_device_config())
+    for t, j in zip(_targets(tsynth), _targets(jsynth)):
+        assert (t.range_bin(cfg), t.reported_speed(cfg)) == (
+            j.range_bin(jcfg), j.reported_speed(jcfg))
+    np.testing.assert_array_equal(got.rx1_pair(), jto_pair(want.rx1()))
+    np.testing.assert_array_equal(got.calib_pair(0, cfg.nts),
+                                  jto_pair(want.calib_vector(0, jcfg.nts)))
+
+
+def test_recording_round_trip_equals_jax(tmp_path):
+    """write_recording → read_recording in both packages, crosswise: the
+    files are byte-identical and every read gives the same arrays."""
+    rec = jsynth.synthesize_recording(
+        jconfig.RadarConfig.create(jconfig.default_device_config()), 6,
+        _targets(jsynth), seed=3)
+    port_rec = traw.RawRecording(frames=rec.frames, calib=rec.calib,
+                                 device=tconfig.default_device_config())
+    jpaths = jraw.write_recording(str(tmp_path / "j"), rec)
+    tpaths = traw.write_recording(str(tmp_path / "t"), port_rec)
+    for a, b in zip(tpaths, jpaths):
+        assert Path(a).read_bytes() == Path(b).read_bytes()
+    for base in ("j", "t"):
+        got = traw.read_recording(str(tmp_path / base))
+        want = jraw.read_recording(str(tmp_path / base))
+        np.testing.assert_array_equal(got.frames, want.frames)
+        np.testing.assert_array_equal(got.calib, want.calib)
+        np.testing.assert_array_equal(got.calib_vector(0, 64),
+                                      want.calib_vector(0, 64))
+        assert dataclasses.asdict(got.device) == dataclasses.asdict(want.device)
+    real = traw.RawRecording(frames=rec.frames.real.copy(), calib=rec.calib)
+    traw.write_raw_bin(str(tmp_path / "r.raw.bin"), real)
+    back = jraw.read_raw_bin(str(tmp_path / "r.raw.bin"))
+    assert back.frames.dtype == np.float32
+    np.testing.assert_array_equal(back.frames, real.frames)
+
+
+def test_local_storage_and_spec(tmp_path):
+    store = tstorage.get_storage(f"local:{tmp_path / 'blobs'}")
+    src = tmp_path / "a.json"
+    src.write_text("{}")
+    store.put(str(src), "x/a.json", "application/json")
+    store.get("x/a.json", str(tmp_path / "b.json"))
+    assert (tmp_path / "b.json").read_text() == "{}"
+    with pytest.raises(FileNotFoundError):
+        store.get("missing", str(tmp_path / "c"))
+    with pytest.raises(ValueError, match="unknown storage spec"):
+        tstorage.get_storage("s3://nowhere")
+
+
+# --- jsonio ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pretty", [True, False])
+def test_write_json_of_payloads_byte_identical(tmp_path, pretty):
+    """The four payloads of one recording (the port's CPU pipeline) written
+    by both packages' write_json: the same bytes."""
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+
+    cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
+    rec = tsynth.synthesize_recording(cfg, 48, _targets(tsynth), seed=5)
+    out = RadarPipeline(cfg, device="cpu").process_recording(
+        rec.rx1_pair(), rec.calib_pair(0, cfg.nts))
+    assert len(out.payloads) == 4
+    for name, payload in out.payloads.items():
+        a = tjson.write_json(str(tmp_path / f"t_{name}"), payload, pretty=pretty)
+        b = jjson.write_json(str(tmp_path / f"j_{name}"), payload, pretty=pretty)
+        assert Path(a).read_bytes() == Path(b).read_bytes(), name
+    odd = {"m": np.array([[1.5, np.nan], [np.inf, -0.0]] * 300, np.float32),
+           "v": np.arange(600, dtype=np.float64) / 7, "n": None, "s": "x",
+           "nested": {"a": [1, 2.5, np.float32(3)]}, "b": np.bool_(True)}
+    assert tjson.dumps_matlab(odd, pretty) == jjson.dumps_matlab(odd, pretty)
+
+
+# --- entry points run on the card by default ---------------------------------
+
+
+def _entry_points(tmp_path):
+    from fmcw_radar_processing_tpu_torch.models.infer import (
+        SpectrogramClassifier,
+        export_classifier,
+    )
+    from fmcw_radar_processing_tpu_torch.models.params import state_dict_to_flax
+    from fmcw_radar_processing_tpu_torch.models.vgg import build_model
+    from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+
+    shape = (32, 32, 3)
+    cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
+    params = state_dict_to_flax(build_model("small", shape, "cpu").state_dict())
+    art = export_classifier(str(tmp_path / "art"), "small", params, shape,
+                            ("calf", "human"))
+    return {
+        "RadarPipeline": lambda: RadarPipeline(cfg),
+        "make_frame_chain": lambda: make_frame_chain(cfg),
+        "SpectrogramClassifier": lambda: SpectrogramClassifier(
+            "small", params, shape, ("calf", "human")),
+        "SpectrogramClassifier.load": lambda: SpectrogramClassifier.load(art),
+        "build_model": lambda: build_model("small", shape),
+    }, {
+        "RadarPipeline": lambda: RadarPipeline(cfg, device="cpu"),
+        "make_frame_chain": lambda: make_frame_chain(cfg, "cpu"),
+        "SpectrogramClassifier": lambda: SpectrogramClassifier(
+            "small", params, shape, ("calf", "human"), "cpu"),
+        "SpectrogramClassifier.load": lambda: SpectrogramClassifier.load(
+            art, "cpu"),
+        "build_model": lambda: build_model("small", shape, "cpu"),
+    }
+
+
+@pytest.mark.parametrize("name", ["RadarPipeline", "make_frame_chain",
+                                  "SpectrogramClassifier",
+                                  "SpectrogramClassifier.load", "build_model"])
+def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
+    """With no device given an entry point takes "cuda": without a card it
+    raises RuntimeError instead of running on the CPU; "cpu" must be asked
+    for."""
+    default, cpu = _entry_points(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        default[name]()
+    assert cpu[name]() is not None
+
+
+@pytest.mark.parametrize("fn", ["PackedFastTime.create",
+                                "SlowTimeOperator.create", "blocked_weight"])
+def test_internal_builders_take_device_without_default(fn):
+    from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime
+    from fmcw_radar_processing_tpu_torch.dsp.slow_time import SlowTimeOperator
+    from fmcw_radar_processing_tpu_torch.ops.fast_time_cuda import blocked_weight
+
+    obj = {"PackedFastTime.create": PackedFastTime.create,
+           "SlowTimeOperator.create": SlowTimeOperator.create,
+           "blocked_weight": blocked_weight}[fn]
+    param = inspect.signature(obj).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+
+
+@pytest.mark.parametrize("impl,device,want", [
+    ("auto", "cuda", "pallas_profile_high"),
+    ("auto", torch.device("cuda", 0), "pallas_profile_high"),
+    ("auto", "cpu", "pallas_profile"),
+    ("pallas_profile_high", "cpu", "pallas_profile_high"),
+    ("pallas_profile", "cuda", "pallas_profile"),
+    ("pallas", "cpu", "pallas"),
+])
+def test_resolve_impl_auto_by_device(impl, device, want):
+    """As the JAX package's resolve_impl by backend: the bf16x3 chain on
+    the accelerator, an exact one elsewhere; explicit impls stay."""
+    from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import resolve_impl
+
+    assert resolve_impl(impl, device) == want

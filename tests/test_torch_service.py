@@ -357,7 +357,7 @@ def _png_bytes(img01):
 def artifact(tmp_path_factory):
     """A SmallCNN with Flax's default initialization from a seeded
     generator, exported as an inference artifact."""
-    model = init_flax_default_(build_model("small", SHAPE),
+    model = init_flax_default_(build_model("small", SHAPE, "cpu"),
                                torch.Generator().manual_seed(0))
     path = str(tmp_path_factory.mktemp("clf") / "artifact")
     export_classifier(path, "small", state_dict_to_flax(model.state_dict()),
