@@ -16,9 +16,13 @@ and read just after: ``RadarPipeline.process_recording`` under the
 production profile on a 65,536-frame synthetic recording with the default
 impl (K1a, K2, K3) and with impl "pallas" (K6, K7, K2, K3), the recompute
 export ``spectrogram(recompute=True)`` on that run's packed signal (K5a,
-K5b, bit-equal to K2/K3), the fidelity profile on a 1,024-frame recording
+K5b, bit-equal to K2/K3) and on the same signal at nfft 1,000 (nb_pad 504:
+the bin-blocked recompute pair psd_tmax_tiled/db_rescale_recompute_tiled,
+bit-equal to K4a/K4b), the fidelity profile on a 1,024-frame recording
 (K1a, K4a, K4b) and that recording with impl "pallas_profile" (K1b),
-checking the detections against the injected targets.
+checking the detections against the injected targets. A 256-frame
+production recording at ``stft_hop=4`` (plain PyTorch after the frame
+chain, as the JAX package's XLA branch) is held to the CPU plain path.
 The service answers production and default-profile requests,
 full-recording ("no") and activity ("yes"). Then the persistent service
 path at full size: [stream] the streaming processor at bench.py's
@@ -267,6 +271,72 @@ def k3_wide_check(stc, db_floor, sig, nv, op) -> None:
         check(ok, f"K3 parity at nb_pad {nb_pad} ({db_dtype}, {int_dtype})")
         del db, out
     torch.cuda.empty_cache()
+
+
+def recompute_check(stc, db_floor, sig, nv, a2, nb, t_pad, tiled: bool):
+    """The recompute pair on ``sig`` in every intensity dtype: K5a/K5b, or
+    with ``tiled`` psd_tmax_tiled/db_rescale_recompute_tiled. Its tmax, db
+    and intensity bit-equal to the materializing pair's (K2 → K3, or
+    K4a → K4b; float32 dB map), each within K2/K3's bounds of its plain
+    version. Returns (tmax error, float32 db and intensity error)."""
+    nb_pad = a2.shape[0] // 2
+    if tiled:
+        names = ("K4a/K4b", "tiled recompute")
+        phase1, phase2 = stc.psd_phase1_tiled, stc.db_rescale_tiled
+        tmax_fn, rescale_fn = stc.psd_tmax_tiled, stc.db_rescale_recompute_tiled
+    else:
+        names = ("K2/K3", "K5a/K5b")
+        phase1, phase2 = stc.psd_phase1, stc.db_rescale
+        tmax_fn, rescale_fn = stc.psd_tmax, stc.db_rescale_recompute
+    tmax_err = rescale_err = 0.0
+    for int_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        p, tmax = phase1(sig, nv, a2, nb_pad, t_pad)
+        db, out = phase2(p, tmax.amax(), nb, 1024, torch.float32, int_dtype)
+        del p
+        tmax_r = tmax_fn(sig, nv, a2, nb_pad, t_pad)
+        gmax_r = tmax_r.amax()
+        db_r, out_r = rescale_fn(sig, nv, a2, gmax_r, nb, 1024, t_pad, int_dtype)
+        bit = [bool(torch.equal(tmax_r, tmax)), bool(torch.equal(db_r, db)),
+               bool(torch.equal(out_r, out))]
+        del db, out
+        # One max per 1,024-column tile (the tiled kernel's are cut per bin
+        # block too, bin block major).
+        tmax_cols = tmax_r.reshape(-1, t_pad // stc.PSD_TILE).amax(0)
+        tmax_ref = stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad)
+        d = (tmax_cols - tmax_ref).abs()
+        ok = bool((d <= 1e-5 * tmax_ref.abs()).all())
+        t_err = float(d.max())
+        tmax_err = max(tmax_err, t_err)
+        db_ref, out_ref = stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb,
+                                                       1024, t_pad, int_dtype)
+        ok &= bool(torch.equal(db_r == db_floor, db_ref == db_floor))
+        d = (db_r - db_ref).abs()
+        db_err = float(d[db_ref > -120].max())
+        ok &= db_err <= 1e-3
+        if int_dtype == torch.int8:
+            d = (out_r.int() - out_ref.int()).abs()
+            ok &= bool((d <= 1).all())
+        elif int_dtype == torch.bfloat16:
+            d = (out_r.float() - out_ref.float()).abs()
+            ok &= bool((d <= bf16_ulp(out_ref.float())).all())
+        else:
+            d = (out_r - out_ref).abs()
+            ok &= bool((d <= 2e-3).all())
+        int_err = float(d.max())
+        if int_dtype == torch.float32:
+            rescale_err = max(db_err, int_err)
+        tol = {torch.float32: "2e-3 dB", torch.bfloat16: "one bf16 ulp",
+               torch.int8: "one code"}[int_dtype]
+        print(f"[parity] {names[1]} L={sig.shape[0]} nb_pad={nb_pad} intensity "
+              f"{str(int_dtype)[6:]}: tmax, db, intensity bit-equal to "
+              f"{names[0]} {bit}; vs plain: tmax {t_err:.6g} (tol "
+              f"1e-5·|ref|), db {db_err:.6g} above -120 dB (tol 1e-3), "
+              f"intensity {int_err:.6g} (tol {tol}), floor masks equal "
+              f"{'ok' if ok and all(bit) else 'FAIL'}")
+        check(ok and all(bit), f"{names[1]} parity ({int_dtype})")
+        del db_r, out_r, db_ref, out_ref, d, tmax_ref
+    torch.cuda.empty_cache()
+    return tmax_err, rescale_err
 
 
 def serve_no(svc, work: str, want_range, what: str) -> None:
@@ -974,10 +1044,22 @@ def main() -> int:
             k4_errs.append(errs)
             (ms4a, plain_ms4a, second4a), (ms4b, plain_ms4b, second4b) = k4_times(
                 stc, f_op.num_bins, ops_, REPS)
+            # The share of a first-in-turn reading that is the allocator's:
+            # torch.empty of a dB map alone, in turns with K4b's plain version.
+            p_f, g_f = ops_[5], ops_[6]
+            al_first, _, al_second = time_pair(
+                lambda: torch.empty_like(p_f),
+                lambda: stc.db_rescale_ref(p_f, g_f, f_op.num_bins, 1024,
+                                           torch.float32, torch.float32))
+            del p_f, g_f
         del ops_
     print(f"[time] K4a kernel {ms4a:.4f} ms, plain {plain_ms4a:.4f} ms; "
           f"K4b kernel {ms4b:.4f} ms, plain {plain_ms4b:.4f} ms "
-          f"(nfft {f_op.nfft}, L {f_len}, float32 stores, median of {REPS})")
+          f"(nfft {f_op.nfft}, L {f_len}, float32 stores, median of {REPS}); "
+          f"K4a second in its turn {second4a:.4f} ms, K4b {second4b:.4f} ms; "
+          f"torch.empty of the [{f_nb_pad}, {f_t_pad}] float32 dB map alone, "
+          f"in turns with K4b's plain version: {al_first:.4f} ms first, "
+          f"{al_second:.4f} ms second")
     del sig
     torch.cuda.empty_cache()
 
@@ -1045,6 +1127,43 @@ def main() -> int:
         check(bool(((a - b).abs() <= tol)[band].all()),
               f"small: {name} within one bf16 ulp above -120 dB")
     print("[small] 256-frame recording on cuda matches the CPU plain path")
+
+    # 5a''. The same recording at stft_hop=4: the JAX package's XLA branch
+    # (operator product, float32 dB map, rescale, bf16 cast) in plain
+    # PyTorch on the card, against the CPU plain path; no export kernel.
+    hcfg = RadarConfig.create(default_device_config(),
+                              AlgorithmConfig.production(stft_hop=4))
+    hpipe = RadarPipeline(hcfg, device=dev)
+    _lib.reset_launches()
+    got = hpipe.process_recording(s_raw, s_cal)
+    torch.cuda.synchronize()
+    h_launches = dict(_lib.LAUNCHES)
+    want = RadarPipeline(hcfg, device="cpu", impl="pallas_profile_high"
+                         ).process_recording(s_raw, s_cal)
+    check(h_launches["fast_time_profile_b3"] > 0
+          and not any(n for k, n in h_launches.items()
+                      if k != "fast_time_profile_b3"),
+          f"hop 4: the frame chain's K1a and no export kernel: {h_launches}")
+    check(np.array_equal(got.detected, want.detected)
+          and np.array_equal(got.target_range, want.target_range, equal_nan=True)
+          and np.array_equal(got.target_speed, want.target_speed, equal_nan=True),
+          "hop 4: detections, ranges, speeds")
+    n_cols = (int(got.detected.sum()) * cfg.pn - 20) // 4 + 1
+    check(got.spectrogram_intensity.shape == (1024, n_cols)
+          and np.array_equal(got.spectrogram_times, want.spectrogram_times),
+          f"hop 4: intensity (1024, {n_cols}) and its times")
+    for name in ("spectrogram_intensity", "spectrogram_psd_db"):
+        a = torch.as_tensor(getattr(got, name))
+        b = torch.as_tensor(getattr(want, name))
+        check(a.shape == b.shape, f"hop 4: {name} shape")
+        tol = torch.maximum(bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                            torch.tensor(1e-3))
+        check(bool(((a - b).abs() <= tol)[b > -120].all()),
+              f"hop 4: {name} within one bf16 ulp above -120 dB")
+    print(f"[hop 4] 256-frame production recording at stft_hop=4 on cuda "
+          f"matches the CPU plain path: intensity (1024, {n_cols}), times "
+          f"{got.spectrogram_times[:3].tolist()} s; launches {h_launches}")
+    del hpipe
 
     # 5. The main path, counted and timed.
     torch.cuda.synchronize()
@@ -1208,50 +1327,8 @@ def main() -> int:
     check(torch.equal(db_r, db_m) and torch.equal(int_r, int_m),
           "spectrogram(recompute=True) bit-equal to spectrogram()")
     del db_r, int_r, db_m, int_m
-    k5a_err = k5b_err = 0.0
-    for int_dtype in (torch.float32, torch.bfloat16, torch.int8):
-        p, tmax = stc.psd_phase1(sig, nv, a2, nb_pad, t_pad)
-        db, out = stc.db_rescale(p, tmax.amax(), nb, 1024, torch.float32, int_dtype)
-        del p
-        tmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad)
-        gmax_r = tmax_r.amax()
-        db_r, out_r = stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024,
-                                               t_pad, int_dtype)
-        bit = [bool(torch.equal(tmax_r, tmax)), bool(torch.equal(db_r, db)),
-               bool(torch.equal(out_r, out))]
-        del db, out
-        tmax_ref = stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad)
-        ok = bool(((tmax_r - tmax_ref).abs() <= 1e-5 * tmax_ref.abs()).all())
-        k5a_err = max(k5a_err, float((tmax_r - tmax_ref).abs().max()))
-        db_ref, out_ref = stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb,
-                                                       1024, t_pad, int_dtype)
-        ok &= bool(torch.equal(db_r == DB_FLOOR, db_ref == DB_FLOOR))
-        d = (db_r - db_ref).abs()
-        db_err = float(d[db_ref > -120].max())
-        ok &= db_err <= 1e-3
-        if int_dtype == torch.int8:
-            d = (out_r.int() - out_ref.int()).abs()
-            ok &= bool((d <= 1).all())
-        elif int_dtype == torch.bfloat16:
-            d = (out_r.float() - out_ref.float()).abs()
-            ok &= bool((d <= bf16_ulp(out_ref.float())).all())
-        else:
-            d = (out_r - out_ref).abs()
-            ok &= bool((d <= 2e-3).all())
-        int_err = float(d.max())
-        if int_dtype == torch.float32:
-            k5b_err = max(db_err, int_err)
-        tol = {torch.float32: "2e-3 dB", torch.bfloat16: "one bf16 ulp",
-               torch.int8: "one code"}[int_dtype]
-        print(f"[parity] K5a/K5b L={sig.shape[0]} nb_pad={nb_pad} intensity "
-              f"{str(int_dtype)[6:]}: tmax, db, intensity bit-equal to K2/K3 "
-              f"{bit}; vs plain: tmax {float((tmax_r - tmax_ref).abs().max()):.6g} "
-              f"(tol 1e-5·|ref|), db {db_err:.6g} above -120 dB (tol 1e-3), "
-              f"intensity {int_err:.6g} (tol {tol}), floor masks equal "
-              f"{'ok' if ok and all(bit) else 'FAIL'}")
-        check(ok and all(bit), f"K5 parity ({int_dtype})")
-        del db_r, out_r, db_ref, out_ref, d, tmax_ref
-    torch.cuda.empty_cache()
+    k5a_err, k5b_err = recompute_check(stc, DB_FLOOR, sig, nv, a2, nb, t_pad,
+                                       tiled=False)
     f32, bf16 = torch.float32, torch.bfloat16
 
     def materializing():
@@ -1296,7 +1373,86 @@ def main() -> int:
                                  + nb_pad * t_pad * 4 + 1024 * t_pad * 2,
                                  psd_ops(nv, nb_pad) + db_ops(t_pad, nb_pad),
                                  "f32")))
-    del sig, a2
+    del a2
+
+    # 5d. The recompute export past K5's shared memory: nfft 1,000 (nb 501,
+    # nb_pad 504) on the same packed |signal|, where spectrogram(recompute=
+    # True) takes the bin-blocked recompute pair, bit-equal to K4a → K4b.
+    r_op = StftOperator.create(window_length=20, beta=3.0, nfft=1_000,
+                               fs=1.0 / cfg.derived.prt)
+    r_nb = r_op.num_bins
+    r_nb_pad = -(-r_nb // 8) * 8
+    check(stc.UNTILED_MAX_BINS < r_nb_pad <= stc.RECOMPUTE_MAX_BINS,
+          f"nb_pad {r_nb_pad} is the bin-blocked recompute's domain")
+    r_a2 = torch.as_tensor(stc._folded_operator(r_op, 8), device=dev)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    _, db_r, int_r = stc.spectrogram(sig, count, r_op, intensity_dtype=bf16,
+                                     recompute=True)
+    torch.cuda.synchronize()
+    kt_launches = dict(_lib.LAUNCHES)
+    pair = ("psd_tmax_tiled", "db_rescale_recompute_tiled")
+    check(kt_launches == {k: int(k in pair) for k in kt_launches},
+          f"spectrogram(recompute=True) at nfft 1000 runs {pair} once each "
+          f"and nothing else: {kt_launches}")
+    _, db_m, int_m = stc.spectrogram(sig, count, r_op, intensity_dtype=bf16)
+    check(torch.equal(db_r, db_m) and torch.equal(int_r, int_m),
+          "spectrogram(recompute=True) at nfft 1000 bit-equal to spectrogram()")
+    print(f"[recompute] nfft {r_op.nfft} (nb_pad {r_nb_pad}) on the packed "
+          f"signal (L={sig.shape[0]}): launches {kt_launches}; db "
+          f"{tuple(db_r.shape)} and intensity {tuple(int_r.shape)} bit-equal "
+          "to spectrogram() (K4a → K4b)")
+    del db_r, int_r, db_m, int_m
+    kta_err, ktb_err = recompute_check(stc, DB_FLOOR, sig, nv, r_a2, r_nb, t_pad,
+                                       tiled=True)
+
+    def materializing_tiled():
+        p, tmax = stc.psd_phase1_tiled(sig, nv, r_a2, r_nb_pad, t_pad)
+        return stc.db_rescale_tiled(p, tmax.amax(), r_nb, 1024, f32, bf16)
+
+    def recompute_tiled():
+        gmax = stc.psd_tmax_tiled(sig, nv, r_a2, r_nb_pad, t_pad).amax()
+        return stc.db_rescale_recompute_tiled(sig, nv, r_a2, gmax, r_nb, 1024,
+                                              t_pad, bf16)
+
+    export = time_turns({"K4a+K4b": materializing_tiled,
+                         "recompute": recompute_tiled})
+    print(f"[time] export nfft {r_op.nfft}, float32 dB, bf16 intensity: K4a+K4b "
+          f"{export['K4a+K4b']:.4f} ms, tiled recompute pair "
+          f"{export['recompute']:.4f} ms (in turns, median of {REPS})")
+    msta, plain_msta, secondta = time_pair(
+        lambda: stc.psd_tmax_tiled(sig, nv, r_a2, r_nb_pad, t_pad),
+        lambda: stc.psd_tmax_ref(sig, nv, r_a2, r_nb_pad, t_pad))
+    gmax_r = stc.psd_tmax_tiled(sig, nv, r_a2, r_nb_pad, t_pad).amax()
+    mstb, plain_mstb, secondtb = time_pair(
+        lambda: stc.db_rescale_recompute_tiled(sig, nv, r_a2, gmax_r, r_nb, 1024,
+                                               t_pad, bf16),
+        lambda: stc.db_rescale_recompute_ref(sig, nv, r_a2, gmax_r, r_nb, 1024,
+                                             t_pad, bf16))
+    print(f"[time] psd_tmax_tiled kernel {msta:.4f} ms, plain {plain_msta:.4f} "
+          f"ms; db_rescale_recompute_tiled kernel {mstb:.4f} ms, plain "
+          f"{plain_mstb:.4f} ms (nfft {r_op.nfft}, median of {REPS})")
+    r_blocks = -(-r_nb_pad // stc.BIN_BLOCK)
+    rows.append(dict(name="psd_tmax_tiled", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
+                     max_abs_err=kta_err, ms=msta, plain_ms=plain_msta,
+                     ms_second=secondta,
+                     bound=bound(sig.numel() * 4 + r_a2.numel() * 4
+                                 + r_blocks * t_pad // stc.PSD_TILE * 4,
+                                 psd_ops(nv, r_nb_pad), "f32")))
+    rows.append(dict(name="db_rescale_recompute_tiled", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:178",
+                     max_abs_err=ktb_err, ms=mstb, plain_ms=plain_mstb,
+                     ms_second=secondtb,
+                     bound=bound(sig.numel() * 4 + r_a2.numel() * 4 + 1024 * 12
+                                 + (r_blocks + 1) * 4 + 4
+                                 + r_nb_pad * t_pad * 4 + 1024 * t_pad * 2,
+                                 psd_ops(nv, r_nb_pad) + db_ops(t_pad, r_nb_pad),
+                                 "f32")))
+    del sig, r_a2
+    torch.cuda.empty_cache()
 
     # 6. The fidelity profile — the bare AlgorithmConfig, the service's
     # default — whose nfft = 2^nextpow2(count) takes K4 past 512 bins.
@@ -1345,7 +1501,8 @@ def main() -> int:
     print(f"[fidelity] launches {f_launches}")
     for name in ("fast_time_profile_b3", "psd_phase1_tiled", "db_rescale_tiled"):
         check(f_launches[name] > 0, f"{name} launched on the fidelity path")
-    for name in ("fast_time_profile", "psd_phase1", "db_rescale"):
+    for name in ("fast_time_profile", "psd_phase1", "db_rescale", "psd_tmax_tiled",
+                 "db_rescale_recompute_tiled"):
         check(f_launches[name] == 0, f"{name} not launched on the fidelity path")
     det = fout.detected
     check(np.array_equal(det, fpresent), "fidelity: detected frames = target frames")
@@ -1414,7 +1571,8 @@ def main() -> int:
     # "launches", that path named in "main_path"): the production
     # run for K1a, K2, K3, the impl "pallas_profile" run for K1b, the
     # fidelity run for K4a/K4b, the impl "pallas" run for K6/K7,
-    # spectrogram(recompute=True) for K5a/K5b.
+    # spectrogram(recompute=True) for K5a/K5b and, at nfft 1,000, for the
+    # bin-blocked recompute pair.
     paths = {"fast_time_profile_b3": ("production", launches),
              "fast_time_profile": ("production impl='pallas_profile'", x_launches),
              "psd_phase1": ("production", launches),
@@ -1424,7 +1582,11 @@ def main() -> int:
              "fast_time": ("production impl='pallas'", p_launches),
              "search_peaks_fused": ("production impl='pallas'", p_launches),
              "psd_tmax": ("spectrogram(recompute=True)", k5_launches),
-             "db_rescale_recompute": ("spectrogram(recompute=True)", k5_launches)}
+             "db_rescale_recompute": ("spectrogram(recompute=True)", k5_launches),
+             "psd_tmax_tiled": ("spectrogram(recompute=True) nfft 1000",
+                                kt_launches),
+             "db_rescale_recompute_tiled": ("spectrogram(recompute=True) nfft 1000",
+                                            kt_launches)}
     table = []
     for r in rows:
         path, counts = paths[r["name"]]

@@ -1,8 +1,9 @@
 // The numeric contract shared by the export kernels K2, K3, K5a, K5b
-// (stft_export.cu) and K4a, K4b (stft_export_tiled.cu): one PSD value of a
-// window, the dB of one PSD value, and the emission of a float32 result in
-// the store dtype. One definition, so every path rounds alike: the recompute
-// pair K5a/K5b reproduces K2/K3's outputs bit for bit.
+// (stft_export.cu) and K4a, K4b and their recompute pair
+// (stft_export_tiled.cu): the PSD values of windows, the dB of one PSD
+// value, and the emission of a float32 result in the store dtype. One
+// definition, so every path rounds alike: the recompute pairs reproduce the
+// materializing pairs' outputs bit for bit, and K4 reproduces K2/K3's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,27 +13,49 @@ namespace {
 
 constexpr int kStftTaps = 20;  // the STFT window length the kernels take
 
-// p = (Σ_w ore[w]·x[w])² + (Σ_w oim[w]·x[w])²: the re and im rows of the
-// folded operator (√(scale·dbl) folded in, kStftTaps floats each, 16-byte
-// aligned), FMAs in tap order, then the square-add.
-__device__ __forceinline__ float psd_value(const float (&xv)[kStftTaps],
-                                           const float4* ore,
-                                           const float4* oim) {
-  float sr = 0.f, si = 0.f;
+// The PSD of kCols adjacent columns from their kCols + 19 window samples x:
+// p[c] = (Σ_w ore[w]·x[c + w])² + (Σ_w oim[w]·x[c + w])², with the re and
+// im rows of the folded operator (√(scale·dbl) folded in, kStftTaps floats
+// each, 16-byte aligned). Each column's chain is the same whatever kCols:
+// FMAs in tap order, then re² rounded into an FMA with the rounded im²
+// (written out, so no contraction choice of the compiler can differ
+// between kernels). The columns share every operator load.
+template <int kCols>
+__device__ __forceinline__ void psd_values(
+    const float (&x)[kCols + kStftTaps - 1], const float4* ore,
+    const float4* oim, float (&p)[kCols]) {
+  float sr[kCols], si[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) sr[c] = si[c] = 0.f;
 #pragma unroll
   for (int q = 0; q < kStftTaps / 4; ++q) {
     const float4 ar = ore[q];
     const float4 ai = oim[q];
-    sr = fmaf(ar.x, xv[4 * q + 0], sr);
-    sr = fmaf(ar.y, xv[4 * q + 1], sr);
-    sr = fmaf(ar.z, xv[4 * q + 2], sr);
-    sr = fmaf(ar.w, xv[4 * q + 3], sr);
-    si = fmaf(ai.x, xv[4 * q + 0], si);
-    si = fmaf(ai.y, xv[4 * q + 1], si);
-    si = fmaf(ai.z, xv[4 * q + 2], si);
-    si = fmaf(ai.w, xv[4 * q + 3], si);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      sr[c] = fmaf(ar.x, x[c + 4 * q + 0], sr[c]);
+      sr[c] = fmaf(ar.y, x[c + 4 * q + 1], sr[c]);
+      sr[c] = fmaf(ar.z, x[c + 4 * q + 2], sr[c]);
+      sr[c] = fmaf(ar.w, x[c + 4 * q + 3], sr[c]);
+      si[c] = fmaf(ai.x, x[c + 4 * q + 0], si[c]);
+      si[c] = fmaf(ai.y, x[c + 4 * q + 1], si[c]);
+      si[c] = fmaf(ai.z, x[c + 4 * q + 2], si[c]);
+      si[c] = fmaf(ai.w, x[c + 4 * q + 3], si[c]);
+    }
   }
-  return sr * sr + si * si;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    p[c] = __fmaf_rn(sr[c], sr[c], __fmul_rn(si[c], si[c]));
+  }
+}
+
+// One window's PSD value: psd_values for a single column.
+__device__ __forceinline__ float psd_value(const float (&xv)[kStftTaps],
+                                           const float4* ore,
+                                           const float4* oim) {
+  float p[1];
+  psd_values<1>(xv, ore, oim, p);
+  return p[0];
 }
 
 // db = max(LN10_INV_20 · ln(max(p, 1e-45) / safe), floor) where p > 0, else
@@ -44,6 +67,11 @@ __device__ __forceinline__ float psd_to_db(float pv, float safe,
       ? fmaxf(ln10_inv_20 * logf(fmaxf(pv, 1e-45f) / safe), db_floor)
       : db_floor;
 }
+
+// Physical float4 chunk of logical chunk c in a row of a dB tile in shared
+// memory: the lanes of a row read chunks 2l and then 2l + 1, eight at a
+// time, and this spreads those eight over all 32 banks.
+__device__ __forceinline__ int tile_chunk(int c) { return c ^ ((c >> 3) & 1); }
 
 // float32 as is; bf16 round-to-nearest-even; int8 the affine dB code over
 // [lo, lo + 255 / scale], half to even (rintf, like jnp.round), clamped.

@@ -151,11 +151,6 @@ __device__ __forceinline__ void emit_log_rows(
 
 constexpr int kP3Threads = 256;
 
-// Physical float4 chunk of logical chunk c in a K3 dB tile row: each eight
-// lanes of a row read chunks 2l and then 2l + 1, which this spreads over
-// all 32 banks.
-__device__ __forceinline__ int p3_chunk(int c) { return c ^ ((c >> 3) & 1); }
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
@@ -190,7 +185,7 @@ db_rescale_kernel(const float* __restrict__ p, const float* __restrict__ gmax,
     for (int i = tid; i < nb_pad * kChunks; i += kP3Threads) {
       const int b = i / kChunks;
       const int c = i % kChunks;
-      cp_async16(buf + b * kTile + p3_chunk(c) * 4,
+      cp_async16(buf + b * kTile + tile_chunk(c) * 4,
                  src + (size_t)b * t_pad + c * 4);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -219,22 +214,22 @@ db_rescale_kernel(const float* __restrict__ p, const float* __restrict__ gmax,
       const int b = i / kRowThreads;
       const int m = i % kRowThreads;
       float4* r = reinterpret_cast<float4*>(buf + b * kTile);
-      float4 a = r[p3_chunk(2 * m)];
-      float4 c = r[p3_chunk(2 * m + 1)];
+      float4 a = r[tile_chunk(2 * m)];
+      float4 c = r[tile_chunk(2 * m + 1)];
       float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         v[q] = psd_to_db(v[q], safe, ln10_inv_20, db_floor);
       }
-      r[p3_chunk(2 * m)] = make_float4(v[0], v[1], v[2], v[3]);
-      r[p3_chunk(2 * m + 1)] = make_float4(v[4], v[5], v[6], v[7]);
+      r[tile_chunk(2 * m)] = make_float4(v[0], v[1], v[2], v[3]);
+      r[tile_chunk(2 * m + 1)] = make_float4(v[4], v[5], v[6], v[7]);
       emit8(db + (size_t)b * t_pad + t0 + 8 * m, v, 0.f, 0.f);
     }
     __syncthreads();
 
     // The 1024 output rows, kRowStep at a time, 8 columns per thread.
-    const int c0 = p3_chunk(2 * lc);
-    const int c1 = p3_chunk(2 * lc + 1);
+    const int c0 = tile_chunk(2 * lc);
+    const int c1 = tile_chunk(2 * lc + 1);
     for (int o = row0; o < num_bins; o += kRowStep) {
       const int i = s_i0[o];
       const float a0 = s_w0[o];

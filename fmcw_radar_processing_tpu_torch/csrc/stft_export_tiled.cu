@@ -1,21 +1,26 @@
-// K4a and K4b — the bin-blocked spectrogram export for any nfft: what the
-// fidelity profile (nfft = 2^nextpow2(L)) runs once the untiled pair K2/K3
-// no longer fits (nb_pad > 272, nfft > 512).
+// K4a, K4b and their recompute pair — the bin-blocked spectrogram export
+// for any nfft: what the fidelity profile (nfft = 2^nextpow2(L)) runs once
+// the untiled kernels K2/K3 no longer fit (nb_pad > 272, nfft > 512).
 //
 // K4a psd_phase1_tiled replaces ops/stft_pallas.py::_psd_kernel_tiled:
 //
 //     p[b, t] = (Σ_w A2[b, w]·sig[t + w])² + (Σ_w A2[nb_pad + b, w]·sig[t + w])²
 //     p = 0 at columns t ≥ nv;   tmax[k, i] = max of the stored p of
-//     column tile i and bin block k (the caller reduces it on the device)
+//     1024-column tile i and 128-bin block k (reduced on the device after)
 //
-// The grid is column tiles × 128-bin blocks: a block stages its [2·128, 20]
-// slice of the folded operator (20 KB) and its 1043 signal samples in
-// shared memory, and each thread keeps a column's 20 window samples in
-// registers — K2's inner loop (psd_value, export_common.cuh) with an outer
-// bin-block index, so the
-// operator no longer has to fit whole. Bound on an H100: the PSD write
-// (nb_pad·t_pad·4 bytes, 0.54 GB at nfft 16,384 and 16,384 columns) and
-// as many nanoseconds of float32 FMAs (2·nb_pad·20 per column, 5.4e9 there).
+// Bound on an H100: the PSD write (nb_pad·t_pad·4 bytes, 0.54 GB at nfft
+// 16,384 and 16,384 columns: 0.16 ms) and, as long, the float32 FMAs (40 a
+// value, 5.4e9 there: 0.16 ms at 128 a clock on 132 SMs). The FMAs are the
+// wall: without its store the kernel takes about as long, so the design
+// spends as few other instructions per FMA as it can. The grid is
+// 1024-column tiles × 128-bin blocks; a block stages its [2·128, 20]
+// operator slice and 1044 samples in shared memory. Each of its 128
+// threads owns 8 adjacent columns, whose windows share all but 7 of their
+// 27 samples (kept in registers), and computes them together
+// (psd_values<8>): each operator float4, a broadcast load, feeds 32 FMAs,
+// and a row's 8 values leave as two 16-byte streaming stores (a warp
+// writes 1 KB contiguous). A group of columns wholly past nv computes
+// nothing.
 //
 // K4b db_rescale_tiled replaces ops/stft_pallas.py::_db_rescale_kernel_tiled:
 //
@@ -24,15 +29,32 @@
 //
 // The TPU accumulated a dense bf16x3 contraction over bin blocks in VMEM;
 // here the interpolation is the exact float32 gather-and-lerp over the two
-// nonzeros of each row. One block owns 32 columns and walks the bin blocks
-// in order: it turns kb + 1 PSD rows (one halo row, so i0 + 1 is always in
-// shared memory) into dB, stores its kb own rows, then emits the output
-// rows whose i0 falls in the block. i0 is nondecreasing, so those rows are
-// the contiguous range [o_start[k], o_start[k + 1]), built on the host.
-// Blocks do not own bin blocks: at nb 8,193 about 551 of the 1,024 output
-// rows fall in the first 128 bins. Bound: bytes — the PSD read, the dB
-// store and the [1024, t_pad] intensity store (1.14 GB at nfft 16,384 and
-// 16,384 columns, float32).
+// nonzeros of each row. Bound: bytes — the PSD read, the dB store and the
+// [1024, t_pad] intensity store (1.14 GB at nfft 16,384 and 16,384 columns,
+// float32: 0.34 ms), nearly all of it the elementwise PSD → dB stream. Each
+// output row needs rows i0 and i0 + 1 of one bin block and its halo row
+// (the next block's first), so the work splits into independent items
+// (64-column tile, 128-bin block); the rows of block k are the contiguous
+// range [o_start[k], o_start[k + 1]) since i0 is nondecreasing. One block
+// takes one item, bin block major, so the heavy first block (at nb 8,193
+// it owns 551 of the 1,024 output rows) launches first. Its 256 threads
+// each own one 16-byte chunk of the tile's rows: they issue their PSD
+// loads three rows at a time (streaming, straight into registers), turn
+// them into dB, store the block's own rows (16-byte streaming stores) and
+// keep all 129 in a swizzled shared-memory slab (33 KB, tile_chunk), from
+// which the output rows are interpolated, 8 columns a thread. Four blocks
+// fit on an SM: their loads stay in flight while the others convert and
+// emit, which is what hides the memory latency here (no staging buffer).
+//
+// The recompute pair, for 272 < nb_pad ≤ 512 (past K5's shared memory),
+// replaces ops/stft_pallas.py::_tmax_kernel and
+// ::_db_rescale_recompute_kernel there: psd_tmax_tiled is K4a without the
+// PSD store, and db_rescale_recompute_tiled is K4b with each row chunk
+// computed from the signal windows by K4a's arithmetic (psd_values, 4
+// columns a thread) instead of loaded. A block of it takes 8 consecutive
+// column tiles of one bin block, so it stages the block's 129 operator row
+// pairs once for them, and each tile's 84 samples. The same kernels with
+// template flags, so db and intensity are bit-equal to K4a → K4b's.
 //
 // Offsets into [nb_pad, t_pad] arrays are 64-bit: at nfft 65,536 and
 // 65,536 columns nb_pad·t_pad is 2.15e9 > 2^31.
@@ -45,24 +67,65 @@
 
 namespace {
 
-constexpr int kWl = kStftTaps;                // STFT window length
-constexpr int kKb = 128;                      // bins per bin block
-constexpr int kAThreads = 256;
-constexpr int kACols = 4;                     // columns per thread
-constexpr int kATile = kAThreads * kACols;    // 1024 columns per K4a block
-constexpr int kBThreads = 256;
-constexpr int kBTile = 32;                    // columns per K4b block
-constexpr int kBRowStep = kBThreads / kBTile;
+constexpr int kWl = kStftTaps;              // STFT window length
+constexpr int kKb = 128;                    // bins per bin block
+constexpr int kAThreads = 128;
+constexpr int kACols = 8;                   // adjacent columns per thread
+constexpr int kATile = kAThreads * kACols;  // 1024 columns per K4a block
 
-__global__ void __launch_bounds__(kAThreads)
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+constexpr int kASamples = round4(kATile + kWl);  // a K4a block's samples
+constexpr int kBThreads = 256;
+constexpr int kBTile = 64;                  // columns per K4b work item
+constexpr int kBChunks = kBTile / 4;        // a row's 16-byte chunks
+constexpr int kBRows = kKb + 1;             // a bin block and its halo row
+constexpr int kBRowsPerPass = kBThreads / kBChunks;  // rows a pass covers
+constexpr int kBPasses = (kBRows + kBRowsPerPass - 1) / kBRowsPerPass;
+constexpr int kBWave = 3;                   // PSD loads a thread keeps in flight
+constexpr int kRcCols = 4;                  // recompute: columns a thread
+constexpr int kRcTiles = 8;                 // recompute: column tiles a block
+constexpr int kBSamples = round4(kBTile + kWl);  // a recompute tile's samples
+
+// x = xs[lt .. lt + kN): whole float4 loads (lt a multiple of 4; xs holds
+// at least lt + round4(kN) floats).
+template <int kN>
+__device__ __forceinline__ void load_window(const float* xs, int lt,
+                                            float (&x)[kN]) {
+  const float4* s = reinterpret_cast<const float4*>(xs + lt);
+#pragma unroll
+  for (int q = 0; q < (kN + 3) / 4; ++q) {
+    const float4 v = s[q];
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * q + j < kN) x[4 * q + j] = w[j];
+    }
+  }
+}
+
+// The PSD of kCols adjacent columns t .. t + kCols − 1 of one operator row
+// pair, zero at columns ≥ nv: the arithmetic K4a and the recompute share.
+template <int kCols>
+__device__ __forceinline__ void psd_group(
+    const float (&x)[kCols + kWl - 1], const float4* ore, const float4* oim,
+    int t, int nv, float (&pv)[kCols]) {
+  psd_values<kCols>(x, ore, oim, pv);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) pv[c] = t + c < nv ? pv[c] : 0.f;
+}
+
+// kStore = true is K4a; false is psd_tmax_tiled (tmax only, p untouched).
+template <bool kStore>
+__global__ void __launch_bounds__(kAThreads, 4)
 psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
                  const float* __restrict__ a2, int nb_pad,
                  float* __restrict__ p, float* __restrict__ tmax, int t_pad,
                  int nv) {
   __shared__ float4 ops4[2 * kKb * kWl / 4];  // re rows [kKb][kWl], im rows
-  __shared__ float xs[kATile + kWl - 1];
+  __shared__ float4 xs4[kASamples / 4];
   __shared__ float warp_max[kAThreads / 32];
-  const float* ops = reinterpret_cast<const float*>(ops4);
+  float* xs = reinterpret_cast<float*>(xs4);
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kATile;
   const int r0 = blockIdx.y * kKb;
@@ -76,27 +139,36 @@ psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
     ops4[i] = are[i];
     ops4[kKb * kWl / 4 + i] = aim[i];
   }
-  for (int i = tid; i < kATile + kWl - 1; i += kAThreads) {
+  for (int i = tid; i < kASamples; i += kAThreads) {
     const int s = t0 + i;
     xs[i] = s < sig_len ? sig[s] : 0.f;
   }
   __syncthreads();
 
+  const int lt = kACols * tid;
+  const int t = t0 + lt;
+  float4* dst = reinterpret_cast<float4*>(p + (size_t)r0 * t_pad + t);
+  const size_t row4 = (size_t)t_pad / 4;
   float mx = 0.f;
-  for (int c = 0; c < kACols; ++c) {
-    const int lt = c * kAThreads + tid;
-    const int t = t0 + lt;
-    const bool valid = t < nv;
-    float xv[kWl];
-#pragma unroll
-    for (int w = 0; w < kWl; ++w) xv[w] = xs[lt + w];
+  if (t < nv) {
+    float x[kACols + kWl - 1];
+    load_window(xs, lt, x);
     for (int b = 0; b < rows; ++b) {
-      const float4* ore = reinterpret_cast<const float4*>(&ops[b * kWl]);
-      const float4* oim =
-          reinterpret_cast<const float4*>(&ops[(kKb + b) * kWl]);
-      const float pv = valid ? psd_value(xv, ore, oim) : 0.f;
-      p[(size_t)(r0 + b) * t_pad + t] = pv;
-      mx = fmaxf(mx, pv);
+      float pv[kACols];
+      psd_group<kACols>(x, &ops4[b * kWl / 4], &ops4[(kKb + b) * kWl / 4], t,
+                        nv, pv);
+#pragma unroll
+      for (int c = 0; c < kACols; ++c) mx = fmaxf(mx, pv[c]);
+      if (kStore) {
+        __stcs(dst + b * row4, make_float4(pv[0], pv[1], pv[2], pv[3]));
+        __stcs(dst + b * row4 + 1, make_float4(pv[4], pv[5], pv[6], pv[7]));
+      }
+    }
+  } else if (kStore) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = 0; b < rows; ++b) {
+      __stcs(dst + b * row4, zero);
+      __stcs(dst + b * row4 + 1, zero);
     }
   }
 #pragma unroll
@@ -112,83 +184,197 @@ psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
   }
 }
 
-template <typename DbT, typename OutT>
-__global__ void __launch_bounds__(kBThreads)
-db_rescale_tiled_kernel(const float* __restrict__ p,
-                        const float* __restrict__ gmax,
-                        const int* __restrict__ i0,
-                        const float* __restrict__ w0,
-                        const float* __restrict__ w1,
-                        const int* __restrict__ o_start, int nb_pad,
-                        int t_pad, DbT* __restrict__ db,
-                        OutT* __restrict__ out, float ln10_inv_20,
-                        float db_floor, float int8_lo, float int8_scale) {
-  __shared__ float dbs[(kKb + 1) * kBTile];  // kb own rows + the halo row
-  const int tid = threadIdx.x;
-  const int col = tid % kBTile;
-  const int row0 = tid / kBTile;
-  const size_t t = (size_t)blockIdx.x * kBTile + col;
-  const float g = *gmax;
-  const float safe = g > 0.f ? g : 1.f;
-  const int n_blocks = (nb_pad + kKb - 1) / kKb;
+// The operands of K4b and of the recompute's second kernel: K4b reads the
+// PSD p, the recompute sig, a2 and nv instead.
+struct Phase2Args {
+  const float* p;
+  const float* sig;
+  const float* a2;
+  int sig_len, nv;
+  const float* gmax;
+  const int* i0;
+  const float* w0;
+  const float* w1;
+  const int* o_start;
+  int nb_pad, t_pad;
+  void* db;
+  void* out;
+  float ln10_inv_20, db_floor, int8_lo, int8_scale;
+};
 
-  for (int k = 0; k < n_blocks; ++k) {
-    const int r0 = k * kKb;
-    const int own = min(kKb, nb_pad - r0);
-    // The halo row r0 + own exists except after the last block, where no
-    // output row needs it (i0 + 1 ≤ nb − 1 < nb_pad).
-    const int rows = min(own + 1, nb_pad - r0);
-    for (int r = row0; r < rows; r += kBRowStep) {
-      const size_t off = (size_t)(r0 + r) * t_pad + t;
-      const float d = psd_to_db(p[off], safe, ln10_inv_20, db_floor);
-      if (r < own) emit(&db[off], d, 0.f, 0.f);
-      dbs[r * kBTile + col] = d;
+// Four dB values of one row chunk in the dB store dtype, as one streaming
+// store (16 bytes in float32, 8 in bf16, rounded as emit rounds).
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  __stcs(reinterpret_cast<float4*>(dst), v);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __halves2bfloat162(__float2bfloat16_rn(v.x),
+                                               __float2bfloat16_rn(v.y));
+  const __nv_bfloat162 hi = __halves2bfloat162(__float2bfloat16_rn(v.z),
+                                               __float2bfloat16_rn(v.w));
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(dst), u);
+}
+
+// Shared memory of the phase-2 kernel in floats: the dB slab, then the
+// recompute's operator rows [2][kBRows][kWl] and samples.
+template <bool kRecompute>
+constexpr int phase2_smem_floats() {
+  return kBRows * kBTile + (kRecompute ? 2 * kBRows * kWl + kBSamples : 0);
+}
+
+// kRecompute = false is K4b (one item a block); true is
+// db_rescale_recompute_tiled (kRcTiles items of one bin block, db float32).
+template <bool kRecompute, typename DbT, typename OutT>
+__global__ void __launch_bounds__(kBThreads, 4)
+db_rescale_tiled_kernel(const Phase2Args a) {
+  constexpr int kTiles = kRecompute ? kRcTiles : 1;
+  constexpr int kRowThreads = kBTile / 8;  // threads per output row
+  constexpr int kRowStep = kBThreads / kRowThreads;
+  extern __shared__ float4 smem4[];
+  float4* dbs4 = smem4;                            // [kBRows][kBChunks]
+  float4* ops4 = smem4 + kBRows * kBChunks;        // recompute only
+  float* xs = reinterpret_cast<float*>(ops4 + 2 * kBRows * kWl / 4);
+  const int tid = threadIdx.x;
+  const int tiles = a.t_pad / kBTile;
+  const int groups = (tiles + kTiles - 1) / kTiles;
+  const int k = blockIdx.x / groups;  // bin block major
+  const int tile0 = blockIdx.x % groups * kTiles;
+  const int tile_end = min(tiles, tile0 + kTiles);
+  const int r0 = k * kKb;
+  const int own = min(kKb, a.nb_pad - r0);
+  // The halo row r0 + own exists except after the last block, where no
+  // output row needs it (i0 + 1 ≤ nb − 1 < nb_pad).
+  const int rows = min(own + 1, a.nb_pad - r0);
+  const float g = *a.gmax;
+  const float safe = g > 0.f ? g : 1.f;
+  DbT* db = reinterpret_cast<DbT*>(a.db);
+  OutT* out = reinterpret_cast<OutT*>(a.out);
+  const int c = tid % kBChunks;   // this thread's chunk: columns 4c .. 4c + 3
+  const int rb = tid / kBChunks;  // and rows rb, rb + kBRowsPerPass, ...
+  const int pc = tile_chunk(c);
+  const int lc = tid % kRowThreads;  // emission: columns 8·lc .. 8·lc + 7
+  const int row0 = tid / kRowThreads;
+  const int c0 = tile_chunk(2 * lc);
+  const int c1 = tile_chunk(2 * lc + 1);
+  const size_t row4 = (size_t)a.t_pad / 4;
+
+  if constexpr (kRecompute) {  // the block's operator rows, once
+    const float4* are =
+        reinterpret_cast<const float4*>(a.a2 + (size_t)r0 * kWl);
+    const float4* aim =
+        reinterpret_cast<const float4*>(a.a2 + (size_t)(a.nb_pad + r0) * kWl);
+    for (int i = tid; i < rows * kWl / 4; i += kBThreads) {
+      ops4[i] = are[i];
+      ops4[kBRows * kWl / 4 + i] = aim[i];
+    }
+  }
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const size_t t0 = (size_t)tile * kBTile;
+    __syncthreads();  // the previous tile is done with dbs4 and xs
+    float x[kRcCols + kWl - 1];  // the recompute's window samples
+    const float4* src = nullptr;   // K4b's PSD chunks
+    DbT* dst = db + (size_t)r0 * a.t_pad + t0 + 4 * c;
+    if constexpr (kRecompute) {
+      for (int i = tid; i < kBSamples; i += kBThreads) {
+        const size_t s = t0 + i;
+        xs[i] = s < (size_t)a.sig_len ? a.sig[s] : 0.f;
+      }
+      __syncthreads();
+      load_window(xs, kRcCols * c, x);
+    } else {
+      src = reinterpret_cast<const float4*>(a.p + (size_t)r0 * a.t_pad + t0)
+            + c;
+    }
+    // PSD → float32 dB, into the slab; the block's own rows stored.
+#pragma unroll 1  // one wave's registers at a time: no spills
+    for (int j0 = 0; j0 < kBPasses; j0 += kBWave) {
+      float4 v[kBWave];
+      if constexpr (!kRecompute) {
+#pragma unroll
+        for (int j = 0; j < kBWave; ++j) {
+          const int b = rb + (j0 + j) * kBRowsPerPass;
+          if (j0 + j < kBPasses && b < rows) v[j] = __ldcs(src + b * row4);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBWave; ++j) {
+        const int b = rb + (j0 + j) * kBRowsPerPass;
+        if (j0 + j >= kBPasses || b >= rows) continue;
+        if constexpr (kRecompute) {
+          float pv[kRcCols];
+          psd_group<kRcCols>(x, &ops4[b * kWl / 4],
+                             &ops4[(kBRows + b) * kWl / 4],
+                             (int)t0 + kRcCols * c, a.nv, pv);
+          v[j] = make_float4(pv[0], pv[1], pv[2], pv[3]);
+        }
+        const float4 d =
+            make_float4(psd_to_db(v[j].x, safe, a.ln10_inv_20, a.db_floor),
+                        psd_to_db(v[j].y, safe, a.ln10_inv_20, a.db_floor),
+                        psd_to_db(v[j].z, safe, a.ln10_inv_20, a.db_floor),
+                        psd_to_db(v[j].w, safe, a.ln10_inv_20, a.db_floor));
+        dbs4[b * kBChunks + pc] = d;
+        if (b < own) store4(dst + (size_t)b * a.t_pad, d);
+      }
     }
     __syncthreads();
-    const int o_end = __ldg(&o_start[k + 1]);
-    for (int o = __ldg(&o_start[k]) + row0; o < o_end; o += kBRowStep) {
-      const int i = __ldg(&i0[o]) - r0;
-      const float v = fmaf(__ldg(&w1[o]), dbs[(i + 1) * kBTile + col],
-                           __ldg(&w0[o]) * dbs[i * kBTile + col]);
-      emit(&out[(size_t)o * t_pad + t], v, int8_lo, int8_scale);
+
+    // The output rows whose i0 falls in this bin block, kRowStep at a time.
+    const int o_end = __ldg(&a.o_start[k + 1]);
+    for (int o = __ldg(&a.o_start[k]) + row0; o < o_end; o += kRowStep) {
+      const int i = __ldg(&a.i0[o]) - r0;
+      const float a0 = __ldg(&a.w0[o]);
+      const float a1 = __ldg(&a.w1[o]);
+      const float4* lo = dbs4 + i * kBChunks;
+      const float4* hi = lo + kBChunks;
+      const float4 x0 = lo[c0], x1 = lo[c1], y0 = hi[c0], y1 = hi[c1];
+      const float v[8] = {
+          fmaf(a1, y0.x, a0 * x0.x), fmaf(a1, y0.y, a0 * x0.y),
+          fmaf(a1, y0.z, a0 * x0.z), fmaf(a1, y0.w, a0 * x0.w),
+          fmaf(a1, y1.x, a0 * x1.x), fmaf(a1, y1.y, a0 * x1.y),
+          fmaf(a1, y1.z, a0 * x1.z), fmaf(a1, y1.w, a0 * x1.w)};
+      emit8(out + (size_t)o * a.t_pad + t0 + 8 * lc, v, a.int8_lo,
+            a.int8_scale);
     }
-    __syncthreads();  // the next block overwrites dbs
   }
 }
 
-template <typename DbT, typename OutT>
-int launch_db_rescale_tiled(const float* p, const float* gmax, const int* i0,
-                            const float* w0, const float* w1,
-                            const int* o_start, int nb_pad, int t_pad,
-                            void* db, void* out, float ln10_inv_20,
-                            float db_floor, float int8_lo, float int8_scale,
-                            cudaStream_t stream) {
-  db_rescale_tiled_kernel<DbT, OutT><<<t_pad / kBTile, kBThreads, 0, stream>>>(
-      p, gmax, i0, w0, w1, o_start, nb_pad, t_pad, reinterpret_cast<DbT*>(db),
-      reinterpret_cast<OutT*>(out), ln10_inv_20, db_floor, int8_lo,
-      int8_scale);
+template <bool kStore>
+int launch_psd_tiled(const float* sig, int sig_len, const float* a2,
+                     int nb_pad, float* p, float* tmax, int t_pad, int nv,
+                     cudaStream_t stream) {
+  const dim3 grid(t_pad / kATile, (nb_pad + kKb - 1) / kKb);
+  psd_tiled_kernel<kStore><<<grid, kAThreads, 0, stream>>>(
+      sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv);
   return (int)cudaGetLastError();
 }
 
-template <typename DbT>
-int dispatch_tiled_out(int out_dtype, const float* p, const float* gmax,
-                       const int* i0, const float* w0, const float* w1,
-                       const int* o_start, int nb_pad, int t_pad, void* db,
-                       void* out, float ln10_inv_20, float db_floor,
-                       float int8_lo, float int8_scale, cudaStream_t stream) {
+template <bool kRecompute, typename DbT, typename OutT>
+int launch_phase2(const Phase2Args& a, cudaStream_t stream) {
+  auto kernel = db_rescale_tiled_kernel<kRecompute, DbT, OutT>;
+  constexpr int smem = phase2_smem_floats<kRecompute>() * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = a.t_pad / kBTile;
+  const int tiles_per_block = kRecompute ? kRcTiles : 1;
+  const int groups = (tiles + tiles_per_block - 1) / tiles_per_block;
+  kernel<<<groups * ((a.nb_pad + kKb - 1) / kKb), kBThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kRecompute, typename DbT>
+int dispatch_phase2_out(int out_dtype, const Phase2Args& a,
+                        cudaStream_t stream) {
   switch (out_dtype) {
     case 0:
-      return launch_db_rescale_tiled<DbT, float>(
-          p, gmax, i0, w0, w1, o_start, nb_pad, t_pad, db, out, ln10_inv_20,
-          db_floor, int8_lo, int8_scale, stream);
+      return launch_phase2<kRecompute, DbT, float>(a, stream);
     case 1:
-      return launch_db_rescale_tiled<DbT, __nv_bfloat16>(
-          p, gmax, i0, w0, w1, o_start, nb_pad, t_pad, db, out, ln10_inv_20,
-          db_floor, int8_lo, int8_scale, stream);
+      return launch_phase2<kRecompute, DbT, __nv_bfloat16>(a, stream);
     case 2:
-      return launch_db_rescale_tiled<DbT, int8_t>(
-          p, gmax, i0, w0, w1, o_start, nb_pad, t_pad, db, out, ln10_inv_20,
-          db_floor, int8_lo, int8_scale, stream);
+      return launch_phase2<kRecompute, DbT, int8_t>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -203,16 +389,22 @@ extern "C" int psd_phase1_tiled_launch(const float* sig, int sig_len,
                                        const float* a2, int nb_pad, float* p,
                                        float* tmax, int t_pad, int nv,
                                        void* stream) {
-  const dim3 grid(t_pad / kATile, (nb_pad + kKb - 1) / kKb);
-  psd_tiled_kernel<<<grid, kAThreads, 0, (cudaStream_t)stream>>>(
-      sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv);
-  return (int)cudaGetLastError();
+  return launch_psd_tiled<true>(sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv,
+                                (cudaStream_t)stream);
+}
+
+// psd_tmax_tiled: psd_phase1_tiled_launch's tmax without the PSD store.
+extern "C" int psd_tmax_tiled_launch(const float* sig, int sig_len,
+                                     const float* a2, int nb_pad, float* tmax,
+                                     int t_pad, int nv, void* stream) {
+  return launch_psd_tiled<false>(sig, sig_len, a2, nb_pad, nullptr, tmax,
+                                 t_pad, nv, (cudaStream_t)stream);
 }
 
 // p [nb_pad, t_pad] f32; gmax: one f32 on the device; i0/w0/w1 [num_bins];
 // o_start [ceil(nb_pad / 128) + 1] int32, o_start[last] = num_bins;
 // db [nb_pad, t_pad] (db_dtype 0 = f32, 1 = bf16); out [num_bins, t_pad]
-// (out_dtype 0 = f32, 1 = bf16, 2 = int8). t_pad must be a multiple of 32.
+// (out_dtype 0 = f32, 1 = bf16, 2 = int8). t_pad must be a multiple of 64.
 extern "C" int db_rescale_tiled_launch(const float* p, const float* gmax,
                                        const int* i0, const float* w0,
                                        const float* w1, const int* o_start,
@@ -221,19 +413,33 @@ extern "C" int db_rescale_tiled_launch(const float* p, const float* gmax,
                                        float ln10_inv_20, float db_floor,
                                        float int8_lo, float int8_scale,
                                        void* stream) {
+  const Phase2Args a{p,      nullptr, nullptr, 0,      0,
+                     gmax,   i0,      w0,      w1,     o_start,
+                     nb_pad, t_pad,   db,      out,    ln10_inv_20,
+                     db_floor, int8_lo, int8_scale};
   cudaStream_t s = (cudaStream_t)stream;
   switch (db_dtype) {
     case 0:
-      return dispatch_tiled_out<float>(out_dtype, p, gmax, i0, w0, w1,
-                                       o_start, nb_pad, t_pad, db, out,
-                                       ln10_inv_20, db_floor, int8_lo,
-                                       int8_scale, s);
+      return dispatch_phase2_out<false, float>(out_dtype, a, s);
     case 1:
-      return dispatch_tiled_out<__nv_bfloat16>(out_dtype, p, gmax, i0, w0, w1,
-                                               o_start, nb_pad, t_pad, db, out,
-                                               ln10_inv_20, db_floor, int8_lo,
-                                               int8_scale, s);
+      return dispatch_phase2_out<false, __nv_bfloat16>(out_dtype, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// db_rescale_recompute_tiled. sig, a2, nv as psd_phase1_tiled_launch; the
+// rest as db_rescale_tiled_launch, with db [nb_pad, t_pad] f32 only.
+extern "C" int db_rescale_recompute_tiled_launch(
+    const float* sig, int sig_len, const float* a2, int nb_pad, int nv,
+    const float* gmax, const int* i0, const float* w0, const float* w1,
+    const int* o_start, int t_pad, float* db, void* out, int out_dtype,
+    float ln10_inv_20, float db_floor, float int8_lo, float int8_scale,
+    void* stream) {
+  const Phase2Args a{nullptr, sig,     a2,      sig_len, nv,
+                     gmax,    i0,      w0,      w1,      o_start,
+                     nb_pad,  t_pad,   db,      out,     ln10_inv_20,
+                     db_floor, int8_lo, int8_scale};
+  return dispatch_phase2_out<true, float>(out_dtype, a,
+                                          (cudaStream_t)stream);
 }

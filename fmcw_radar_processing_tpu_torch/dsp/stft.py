@@ -216,10 +216,25 @@ def log_interp(values: torch.Tensor, num_bins: int = 1024) -> torch.Tensor:
 
 def log_frequency_rescale(
     freqs: np.ndarray, values: torch.Tensor, num_bins: int = 1024,
+    method: str = "matmul",
 ) -> tuple[np.ndarray, torch.Tensor]:
     """Log-spaced frequency re-gridding (radar_processing.m:291-299).
 
     freqs: [nb] uniform host axis; values: [..., nb, T].
+    method: "matmul" (:func:`log_interp`) or "gather" (two row gathers and
+    ``lo + frac·(hi − lo)``), the JAX package's two formulations, both
+    exact float32 here.
     Returns (log_bins [num_bins], interp [..., num_bins, T]).
     """
+    if method == "gather":
+        nb = values.shape[-2]
+        pos = np.logspace(0.0, np.log10(nb - 1), num_bins)
+        i0 = np.clip(np.floor(pos).astype(np.int64), 0, nb - 2)
+        frac = torch.as_tensor((pos - i0).astype(np.float32),
+                               device=values.device)[:, None]
+        i0 = torch.as_tensor(i0, device=values.device)
+        lo, hi = values[..., i0, :], values[..., i0 + 1, :]
+        return log_bins_axis(freqs, num_bins), lo + frac * (hi - lo)
+    if method != "matmul":
+        raise ValueError(f"unknown rescale method {method!r}")
     return log_bins_axis(freqs, num_bins), log_interp(values, num_bins)

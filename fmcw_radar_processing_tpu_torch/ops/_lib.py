@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"fast_time_profile_b3": 0, "fast_time_profile": 0,
             "psd_phase1": 0, "db_rescale": 0,
             "psd_phase1_tiled": 0, "db_rescale_tiled": 0, "fast_time": 0,
-            "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0}
+            "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0,
+            "psd_tmax_tiled": 0, "db_rescale_recompute_tiled": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -126,6 +127,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.db_rescale_recompute_launch.argtypes = [p, i, p, i, i, p, p, p, p, i,
                                                 i, p, p, i, f, f, f, f, p]
     lib.db_rescale_recompute_launch.restype = i
+    lib.psd_tmax_tiled_launch.argtypes = [p, i, p, i, p, i, i, p]
+    lib.psd_tmax_tiled_launch.restype = i
+    lib.db_rescale_recompute_tiled_launch.argtypes = [p, i, p, i, i, p, p, p, p,
+                                                      p, i, p, p, i, f, f, f, f,
+                                                      p]
+    lib.db_rescale_recompute_tiled_launch.restype = i
 
 
 def load_kernels() -> ctypes.CDLL:

@@ -1,10 +1,10 @@
-"""K2/K3, K4a/K4b and K5a/K5b: the fused spectrogram export (STFT → PSD →
-dB → log bins).
+"""K2/K3, K4a/K4b and the recompute pairs: the fused spectrogram export
+(STFT → PSD → dB → log bins).
 
 :func:`spectrogram` is the port of the JAX package's
 ``ops/stft_pallas.py::spectrogram_pallas``, hop 1. It runs one of two
 kernel pairs, by the padded bin count nb_pad, or with ``recompute=True``
-the recompute pair:
+one of two recompute pairs:
 
   nb_pad ≤ 272 (nfft ≤ 512), the untiled pair, which keeps the operator or
   a dB tile whole in shared memory:
@@ -18,24 +18,28 @@ the recompute pair:
   any larger nb_pad, the bin-blocked pair (128-bin blocks):
     K4a :func:`psd_phase1_tiled` — the same PSD, with one max per column
        tile and bin block (replaces ``_psd_kernel_tiled``);
-    K4b :func:`db_rescale_tiled` — the same dB map and intensity, walking
-       the bin blocks in order (replaces ``_db_rescale_kernel_tiled``);
-  recompute=True, nb_pad ≤ 272, float32 dB map — the PSD is never stored:
-    K5a :func:`psd_tmax` — K2's per-block maxima only (replaces
-       ``_tmax_kernel``);
-    K5b :func:`db_rescale_recompute` — K2's PSD recomputed per column tile,
-       then K3's dB map and intensity, bit-equal to K2 → K3's (replaces
-       ``_db_rescale_recompute_kernel``).
+    K4b :func:`db_rescale_tiled` — the same dB map and intensity, over
+       (column tile, bin block) items (replaces
+       ``_db_rescale_kernel_tiled``);
+  recompute=True, float32 dB map — the PSD is never stored:
+    nb_pad ≤ 272, K5a :func:`psd_tmax` — K2's per-block maxima only
+       (replaces ``_tmax_kernel``) and K5b :func:`db_rescale_recompute` —
+       K2's PSD recomputed per column tile, then K3's dB map and intensity,
+       bit-equal to K2 → K3's (replaces ``_db_rescale_recompute_kernel``);
+    272 < nb_pad ≤ 512, the same two TPU kernels as K4a without its store
+       (:func:`psd_tmax_tiled`) and K4b with each bin block's PSD
+       recomputed (:func:`db_rescale_recompute_tiled`), bit-equal to
+       K4a → K4b's.
 
 Between the phases a ``torch.amax`` of the maxima — the one cross-column
 dependency of the global-max dB normalization — stays on the device.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel (``csrc/stft_export.cu``, ``csrc/stft_export_tiled.cu``), or
-raises, for CUDA tensors. All six kernels compute at exact float32, which
-meets both of the JAX package's phase-1 precision classes ("high" and
-"highest"); the plain versions :func:`psd_phase1_ref` and
-:func:`db_rescale_ref` compute both pairs' functions at any nb, and
+raises, for CUDA tensors. All eight kernels compute at exact float32,
+which meets both of the JAX package's phase-1 precision classes ("high"
+and "highest"); the plain versions :func:`psd_phase1_ref` and
+:func:`db_rescale_ref` compute every pair's function at any nb, and
 :func:`psd_tmax_ref` and :func:`db_rescale_recompute_ref` are built on
 them.
 """
@@ -63,14 +67,17 @@ from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
 
 PSD_TILE = 1024  # columns per K2 and K4a block; t_pad is a multiple of it
 DB_TILE = 64  # columns per K3 tile
-DB_TILED_TILE = 32  # columns per K4b block
+DB_TILED_TILE = 64  # columns per K4b work item
 BIN_BLOCK = 128  # bins per K4a/K4b bin block
 WINDOW = 20  # the window length the kernels are built for
 # nb_pad ceiling of the untiled kernels: nfft 512 under the bf16 store's
 # 16-alignment. K3 keeps two nb_pad × 64 float32 dB tiles in shared memory
 # (139 KB here; 227 KB is the most a block may have). Past it,
-# :func:`spectrogram` takes the bin-blocked pair K4a/K4b.
+# :func:`spectrogram` takes the bin-blocked pairs.
 UNTILED_MAX_BINS = 272
+# nb_pad ceiling of the recompute export: the JAX package's (its recompute
+# formulation is untiled, and its untiled path ends at nb_pad 512).
+RECOMPUTE_MAX_BINS = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -219,6 +226,25 @@ def psd_tmax(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
     return tmax
 
 
+def psd_tmax_tiled(sig: torch.Tensor, nv: int, a2: torch.Tensor, nb_pad: int,
+                   t_pad: int) -> torch.Tensor:
+    """K4a's tmax without the PSD (the recompute export past nb_pad 272).
+    CPU tensors: the plain version; CUDA tensors: the kernel. Returns tmax
+    [ceil(nb_pad / BIN_BLOCK) · t_pad / PSD_TILE] (the plain version's is
+    cut per column tile only, with the same max)."""
+    if sig.device.type == "cpu":
+        return psd_tmax_ref(sig, nv, a2, nb_pad, t_pad)
+    lib = _lib.load_kernels()
+    _check_phase1_operands(sig, a2, nb_pad, t_pad)
+    tmax = torch.empty(-(-nb_pad // BIN_BLOCK) * (t_pad // PSD_TILE),
+                       dtype=torch.float32, device=sig.device)
+    stream = torch.cuda.current_stream(sig.device).cuda_stream
+    rc = lib.psd_tmax_tiled_launch(sig.data_ptr(), sig.shape[0], a2.data_ptr(),
+                                   nb_pad, tmax.data_ptr(), t_pad, nv, stream)
+    _lib.check_launch("psd_tmax_tiled", rc)
+    return tmax
+
+
 def _emit_intensity(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Intensity in the output dtype; int8 is the affine dB code over
     INT8_DB_RANGE, round half to even, clamped (as the kernel emits it)."""
@@ -346,12 +372,7 @@ def db_rescale_recompute(sig: torch.Tensor, nv: int, a2: torch.Tensor,
     lib = _lib.load_kernels()
     nb_pad = a2.shape[0] // 2
     _check_untiled(nb_pad)
-    _check_phase1_operands(sig, a2, nb_pad, t_pad)
-    _check_gmax(gmax, sig.device)
-    if not 2 <= nb <= nb_pad or int_dtype not in _DTYPE_CODE:
-        raise ValueError(f"K5b takes 2 ≤ nb ≤ nb_pad and intensity in "
-                         f"{list(_DTYPE_CODE)}; got nb {nb}, nb_pad {nb_pad}, "
-                         f"{int_dtype}")
+    _check_recompute_operands(sig, a2, gmax, nb, nb_pad, t_pad, int_dtype)
     i0, w0, w1 = _gather_tables(nb, num_bins, sig.device)
     db = torch.empty((nb_pad, t_pad), dtype=torch.float32, device=sig.device)
     out = torch.empty((num_bins, t_pad), dtype=int_dtype, device=sig.device)
@@ -366,6 +387,48 @@ def db_rescale_recompute(sig: torch.Tensor, nv: int, a2: torch.Tensor,
     return db, out
 
 
+def _check_recompute_operands(sig: torch.Tensor, a2: torch.Tensor,
+                              gmax: torch.Tensor, nb: int, nb_pad: int,
+                              t_pad: int, int_dtype: torch.dtype) -> None:
+    """What K5b and db_rescale_recompute_tiled both take."""
+    _check_phase1_operands(sig, a2, nb_pad, t_pad)
+    _check_gmax(gmax, sig.device)
+    if not 2 <= nb <= nb_pad or int_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the recompute kernels take 2 ≤ nb ≤ nb_pad and "
+                         f"intensity in {list(_DTYPE_CODE)}; got nb {nb}, "
+                         f"nb_pad {nb_pad}, {int_dtype}")
+
+
+def db_rescale_recompute_tiled(sig: torch.Tensor, nv: int, a2: torch.Tensor,
+                               gmax: torch.Tensor, nb: int, num_bins: int,
+                               t_pad: int, int_dtype: torch.dtype
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4b with each bin block's PSD recomputed from the signal by K4a's
+    arithmetic (the recompute export past nb_pad 272). CPU tensors: the
+    plain version of K5b; CUDA tensors: the kernel. Arguments and results
+    as :func:`db_rescale_recompute`."""
+    if sig.device.type == "cpu":
+        return db_rescale_recompute_ref(sig, nv, a2, gmax, nb, num_bins, t_pad,
+                                        int_dtype)
+    lib = _lib.load_kernels()
+    nb_pad = a2.shape[0] // 2
+    _check_recompute_operands(sig, a2, gmax, nb, nb_pad, t_pad, int_dtype)
+    i0, w0, w1 = _gather_tables(nb, num_bins, sig.device)
+    o_start = _bin_block_table(nb, num_bins, nb_pad, sig.device)
+    db = torch.empty((nb_pad, t_pad), dtype=torch.float32, device=sig.device)
+    out = torch.empty((num_bins, t_pad), dtype=int_dtype, device=sig.device)
+    gmax = gmax.reshape(1).contiguous()
+    stream = torch.cuda.current_stream(sig.device).cuda_stream
+    rc = lib.db_rescale_recompute_tiled_launch(
+        sig.data_ptr(), sig.shape[0], a2.data_ptr(), nb_pad, nv,
+        gmax.data_ptr(), i0.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+        o_start.data_ptr(), t_pad, db.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[int_dtype], LN10_INV_20, DB_FLOOR, INT8_DB_RANGE[0],
+        INT8_SCALE, stream)
+    _lib.check_launch("db_rescale_recompute_tiled", rc)
+    return db, out
+
+
 def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
                 num_bins: int = 1024, intensity_dtype=torch.float32,
                 db_store_dtype=torch.float32, recompute: bool = False):
@@ -377,11 +440,12 @@ def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
     DB_FLOOR (db) and the floor column through the interpolation
     (intensity). nb_pad ≤ UNTILED_MAX_BINS runs K2/K3, larger K4a/K4b.
 
-    recompute: True runs K5a/K5b, which never store the PSD: the psd slot
-    is None, and db and intensity are bit-equal to K2/K3's. As in the JAX
-    package it takes a float32 dB map only, and nb_pad ≤ UNTILED_MAX_BINS
-    (the port's untiled domain: every power-of-two nfft up to 512);
-    anything else raises ValueError.
+    recompute: True runs a pair that never stores the PSD: the psd slot is
+    None, and db and intensity are bit-equal to the materializing pair's
+    at the same nb_pad (K5a/K5b up to UNTILED_MAX_BINS, then
+    psd_tmax_tiled/db_rescale_recompute_tiled). As in the JAX package it
+    takes a float32 dB map only, and nb_pad ≤ RECOMPUTE_MAX_BINS (JAX's
+    untiled domain: nfft up to 1,022); anything else raises ValueError.
     """
     if op.hop != 1:
         raise ValueError("the fused spectrogram export supports hop=1 only")
@@ -399,13 +463,17 @@ def spectrogram(sig: torch.Tensor, valid_len: int, op: StftOperator,
         if db_store_dtype == torch.bfloat16:
             raise ValueError("recompute=True stores the dB map in float32 "
                              "only (it never stores the PSD either)")
-        if nb_pad > UNTILED_MAX_BINS:
+        if nb_pad > RECOMPUTE_MAX_BINS:
             raise ValueError(
                 f"recompute=True is the untiled formulation (nb_pad ≤ "
-                f"{UNTILED_MAX_BINS}), got nb_pad {nb_pad} at nfft {op.nfft}")
-        gmax = psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
-        db, intensity = db_rescale_recompute(sig, nv, a2, gmax, nb, num_bins,
-                                             t_pad, intensity_dtype)
+                f"{RECOMPUTE_MAX_BINS}), got nb_pad {nb_pad} at nfft {op.nfft}")
+        if nb_pad <= UNTILED_MAX_BINS:
+            phase1, phase2 = psd_tmax, db_rescale_recompute
+        else:
+            phase1, phase2 = psd_tmax_tiled, db_rescale_recompute_tiled
+        gmax = phase1(sig, nv, a2, nb_pad, t_pad).amax()
+        db, intensity = phase2(sig, nv, a2, gmax, nb, num_bins, t_pad,
+                               intensity_dtype)
         return None, db[:nb, :t], intensity[:, :t]
     if nb_pad <= UNTILED_MAX_BINS:
         phase1, phase2 = psd_phase1, db_rescale

@@ -23,6 +23,9 @@ from fmcw_radar_processing_tpu_torch.dsp.stft import (
     StftOperator,
     decode_db_int8,
     log_bins_axis,
+    log_frequency_rescale,
+    psd_db,
+    quantize_db_int8,
     stft_frame_count,
 )
 from fmcw_radar_processing_tpu_torch.ops.stft_cuda import spectrogram
@@ -115,9 +118,6 @@ class RadarPipeline:
     def __init__(self, cfg: RadarConfig, filename: str = "radar_data",
                  device: torch.device | str = "cuda", impl: str = "auto"):
         self.device = resolve_device(device)
-        a = cfg.algorithm
-        if (a.stft_hop or 1) != 1:
-            raise NotImplementedError("only hop 1 is ported (stft_hop=None)")
         pin_f32_matmul()
         self.cfg = cfg
         self.filename = filename
@@ -157,20 +157,34 @@ class RadarPipeline:
         op = StftOperator.create(
             window_length=wl, beta=a.stft_kaiser_beta,
             nfft=a.stft_nfft or next_pow2(count),  # the nfft bucket (:273)
-            fs=1.0 / self.cfg.derived.prt)
+            fs=1.0 / self.cfg.derived.prt, hop=a.stft_hop or 1)
         n_valid = stft_frame_count(count, wl, op.hop)
+        int_dtype = _STORE_DTYPES[a.intensity_dtype]
         db_store = _STORE_DTYPES[a.stft_db_store]
         if -(-op.num_bins // 8) * 8 > 512:
             # The JAX package's rule (its resolves_tiled): past 512 bins its
             # export is the bin-blocked float32 path, whatever the config
             # asks. Which kernel pair runs here is spectrogram()'s own gate.
             db_store = torch.float32
+        freqs = (np.arange(op.num_bins, dtype=np.float32)
+                 * np.float32(op.fs / op.nfft))
         with tm.stage("stft", items=count):
             # Reference: STFT of |slow_time| (radar_processing.m:270).
-            _, db, intensity = tm.observe(spectrogram(
-                pair_abs(signal), count, op, a.max_freq_bins,
-                intensity_dtype=_STORE_DTYPES[a.intensity_dtype],
-                db_store_dtype=db_store))
+            sig = pair_abs(signal)
+            if op.hop == 1:
+                _, db, intensity = spectrogram(
+                    sig, count, op, a.max_freq_bins, intensity_dtype=int_dtype,
+                    db_store_dtype=db_store)
+            else:
+                # The JAX package's XLA branch, which it takes for every
+                # hop ≠ 1: the operator product, the float32 dB map
+                # (whatever stft_db_store says), the rescale, then the cast.
+                db = psd_db(op(sig, valid_len=count).power)
+                _, intensity = log_frequency_rescale(
+                    freqs, db, a.max_freq_bins, method=a.rescale_method)
+                intensity = (quantize_db_int8(intensity) if int_dtype == torch.int8
+                             else intensity.to(int_dtype))
+            tm.observe((db, intensity))
         with tm.stage("host_decode", items=n_valid):
             intensity = intensity[:, :n_valid].cpu()
             if a.intensity_dtype == "int8":
@@ -178,11 +192,10 @@ class RadarPipeline:
             else:  # bf16/f32 copied in the store dtype, widened on the host
                 intensity_np = intensity.to(torch.float32).numpy()
             db_np = db[:, :n_valid].cpu().to(torch.float32).numpy()
-        freqs = (np.arange(op.num_bins, dtype=np.float32)
-                 * np.float32(op.fs / op.nfft))
-        # Segment-centre times, × the float32 reciprocal of fs: what XLA
-        # makes of the JAX package's division by a constant.
-        times = ((np.arange(n_valid, dtype=np.float32) + np.float32(wl / 2.0))
+        # Segment-centre times (t·hop + W/2)/fs, × the float32 reciprocal of
+        # fs: what XLA makes of the JAX package's division by a constant.
+        times = ((np.arange(n_valid, dtype=np.float32) * np.float32(op.hop)
+                  + np.float32(wl / 2.0))
                  * (np.float32(1.0) / np.float32(op.fs)))
         return (times, log_bins_axis(freqs, a.max_freq_bins), intensity_np,
                 freqs, db_np)

@@ -1,6 +1,7 @@
 """PyTorch port: the materializing frame chain (impl "pallas": K6 range FFT,
 K7 peak search), the range-FFT output of the profile chain, and the
-recompute export (K5a/K5b) vs the JAX package on the CPU.
+recompute export (K5a/K5b, and past nb_pad 272 its bin-blocked pair) vs
+the JAX package on the CPU.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
 side runs its Pallas kernels in interpret mode, as its own tests do. The
@@ -350,8 +351,8 @@ def test_unknown_impl_raises_as_in_jax(cfg):
 # --- K5a / K5b: the recompute export -----------------------------------------
 
 
-def _jax_recompute(sig, count, **kw):
-    op = JStftOperator.create(**OP_KW)
+def _jax_recompute(sig, count, nfft=256, **kw):
+    op = JStftOperator.create(**{**OP_KW, "nfft": nfft})
     out = jstp.spectrogram_pallas(jnp.asarray(sig), jnp.asarray(count), op,
                                   tile=512, recompute=True, **kw)
     return out[0], *(np.asarray(a).astype(np.float32) if a.dtype == jnp.bfloat16
@@ -403,23 +404,73 @@ def test_recompute_intensity_dtypes(int_dtype):
                                    int_j > -120, 2e-3)
 
 
-@pytest.mark.parametrize("case", ["nfft_1024", "bf16_db_store", "hop_2"])
+@pytest.mark.parametrize("nfft", [600, 1000])  # nb_pad 304 and 504
+@pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_recompute_past_untiled_kernels_matches_pallas(nfft, int_dtype):
+    """272 < nb_pad ≤ 512, where the card takes the bin-blocked recompute
+    pair: psd None; db and intensity bit-equal to the port's materializing
+    export (K4a/K4b's plain versions); vs JAX's recompute pair, the bounds
+    of the two tests above (dB atol 1e-3 above −120 dB, floors equal;
+    intensity atol 2e-3, one bf16 ulp or one int8 code)."""
+    sig = _signal(4096, 3000)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    p, db, intensity = stc.spectrogram(torch.as_tensor(sig), 3000, op,
+                                       intensity_dtype=int_dtype, recompute=True)
+    assert p is None and db.dtype == torch.float32
+    assert intensity.dtype == int_dtype
+    _, db_m, int_m = stc.spectrogram(torch.as_tensor(sig), 3000, op,
+                                     intensity_dtype=int_dtype)
+    assert torch.equal(db, db_m) and torch.equal(intensity, int_m)
+    jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+              torch.int8: jnp.int8}[int_dtype]
+    p_j, db_j, int_j = _jax_recompute(sig, 3000, nfft=nfft, intensity_dtype=jdtype)
+    assert p_j is None and db.shape == db_j.shape == (op.num_bins, 4077)
+    assert intensity.shape == int_j.shape
+    db = db.numpy()
+    m = db_j > -120
+    np.testing.assert_allclose(db[m], db_j[m], atol=1e-3)
+    np.testing.assert_array_equal(db == DB_FLOOR, db_j == DB_FLOOR)
+    assert np.all(db[:, 3000 - 19:] == DB_FLOOR)
+    if int_dtype == torch.int8:
+        assert np.abs(intensity.numpy().astype(np.int32)
+                      - int_j.astype(np.int32)).max() <= 1
+    elif int_dtype == torch.bfloat16:
+        assert_within_one_bf16_ulp(intensity.float().numpy(), int_j,
+                                   int_j > -120, 2e-3)
+    else:
+        mi = int_j > -120
+        np.testing.assert_allclose(intensity.numpy()[mi], int_j[mi], atol=2e-3)
+
+
+@pytest.mark.parametrize("case", ["nfft_1024", "bf16_db_store", "hop_2",
+                                  "nfft_1022"])
 def test_recompute_argument_rules(case):
-    """recompute=True raises ValueError past the untiled domain, for a bf16
-    dB store and for hop ≠ 1 — as spectrogram_pallas does."""
+    """recompute=True raises ValueError past nb_pad 512 (nfft 1,024), for a
+    bf16 dB store and for hop ≠ 1 — as spectrogram_pallas does — and runs
+    at nb_pad 512 (nfft 1,022), as spectrogram_pallas does."""
     kw = dict(OP_KW)
-    extra = {}
-    if case == "nfft_1024":
-        kw["nfft"] = 1024
+    if case.startswith("nfft_"):
+        kw["nfft"] = int(case[5:])
     elif case == "hop_2":
         kw["hop"] = 2
     sig = _signal(4096, 3000)
     port_extra = {"db_store_dtype": torch.bfloat16} if case == "bf16_db_store" else {}
     extra = {"db_store_dtype": jnp.bfloat16} if case == "bf16_db_store" else {}
+
+    def port():
+        return stc.spectrogram(torch.as_tensor(sig), 3000,
+                               StftOperator.create(**kw), recompute=True,
+                               **port_extra)
+
+    def jax():
+        return jstp.spectrogram_pallas(jnp.asarray(sig), jnp.asarray(3000),
+                                       JStftOperator.create(**kw), recompute=True,
+                                       **extra)
+
+    if case == "nfft_1022":
+        assert port()[1].shape == jax()[1].shape == (512, 4077)
+        return
     with pytest.raises(ValueError):
-        stc.spectrogram(torch.as_tensor(sig), 3000, StftOperator.create(**kw),
-                        recompute=True, **port_extra)
+        port()
     with pytest.raises(ValueError):
-        jstp.spectrogram_pallas(jnp.asarray(sig), jnp.asarray(3000),
-                                JStftOperator.create(**kw), recompute=True,
-                                **extra)
+        jax()

@@ -474,8 +474,9 @@ def test_kernel_build_failure_names_the_source(monkeypatch, tmp_path):
 
 
 def test_new_wrappers_raise_without_kernel_library(monkeypatch, tmp_path):
-    """K5a, K5b, K6 and K7 on a non-CPU tensor: the loader raises without
-    nvcc, and the plain versions are never called."""
+    """K5a, K5b, the bin-blocked recompute pair, K6 and K7 on a non-CPU
+    tensor: the loader raises without nvcc, and the plain versions are
+    never called."""
     monkeypatch.setattr(_lib, "_lib", None)
     monkeypatch.setattr(_lib, "find_nvcc", lambda: None)
     monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
@@ -501,6 +502,14 @@ def test_new_wrappers_raise_without_kernel_library(monkeypatch, tmp_path):
                                  torch.empty(272, 20, **meta),
                                  torch.empty((), **meta), 129, 1024, 2048,
                                  torch.float32)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.psd_tmax_tiled(torch.empty(2000, **meta), 1981,
+                           torch.empty(608, 20, **meta), 304, 2048)
+    with pytest.raises(_lib.KernelBuildError):
+        stc.db_rescale_recompute_tiled(torch.empty(2000, **meta), 1981,
+                                       torch.empty(608, 20, **meta),
+                                       torch.empty((), **meta), 301, 1024,
+                                       2048, torch.float32)
     assert _lib.LAUNCHES == launches
 
 
@@ -578,10 +587,17 @@ def test_search_peaks_fused_dispatch_on_device_tensors(monkeypatch, targets):
         k: int(k == "search_peaks_fused") for k in before}
 
 
-@pytest.mark.parametrize("nfft", [256, 512])
-def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft):
-    """recompute=True on a device tensor: K5a then K5b, each counted once,
-    psd None, a float32 dB map; K2/K3 and the plain versions untouched."""
+@pytest.mark.parametrize("nfft,kernels", [
+    (256, ("psd_tmax", "db_rescale_recompute")),
+    (512, ("psd_tmax", "db_rescale_recompute")),
+    (600, ("psd_tmax_tiled", "db_rescale_recompute_tiled")),  # nb_pad 304
+    (1000, ("psd_tmax_tiled", "db_rescale_recompute_tiled")),  # nb_pad 504
+])
+def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft,
+                                                          kernels):
+    """recompute=True on a device tensor: K5a then K5b up to nb_pad 272, the
+    bin-blocked pair above, each counted once, psd None, a float32 dB map;
+    the materializing kernels and the plain versions untouched."""
     stub = _stub_library(monkeypatch)
     for name in ("psd_phase1_ref", "db_rescale_ref", "psd_tmax_ref",
                  "db_rescale_recompute_ref"):
@@ -593,12 +609,10 @@ def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft):
                                        recompute=True)
     assert p is None and db.dtype == torch.float32
     assert db.shape == (op.num_bins, 2981) and intensity.shape == (1024, 2981)
-    assert [n for n, _ in stub.calls] == ["psd_tmax_launch",
-                                          "db_rescale_recompute_launch"]
+    assert [n for n, _ in stub.calls] == [k + "_launch" for k in kernels]
     nb_pad = -(-op.num_bins // 8) * 8
     assert stub.calls[0][1][3] == nb_pad and stub.calls[1][1][3] == nb_pad
-    assert _launch_deltas(before) == {
-        k: int(k in ("psd_tmax", "db_rescale_recompute")) for k in before}
+    assert _launch_deltas(before) == {k: int(k in kernels) for k in before}
 
 
 def test_declared_launch_symbols_are_defined_once_in_the_sources():
@@ -616,7 +630,8 @@ def test_declared_launch_symbols_are_defined_once_in_the_sources():
     _lib._declare(declared)
     symbols = set(vars(declared))
     assert {"fast_time_launch", "search_peaks_launch", "psd_tmax_launch",
-            "db_rescale_recompute_launch"} <= symbols
+            "db_rescale_recompute_launch", "psd_tmax_tiled_launch",
+            "db_rescale_recompute_tiled_launch"} <= symbols
     defined: dict[str, int] = {}
     for src in _lib.SOURCES:
         text = (_lib.CSRC / src).read_text()
@@ -723,6 +738,8 @@ def _k4_run(sig, count, op, db_dtype, int_dtype, tiled=True):
 @pytest.mark.parametrize("nfft,l,count,db_dtype", [
     (2048, 4096, 3000, torch.float32),  # nb_pad 1032: a partial last bin block
     (1000, 3000, 2500, torch.bfloat16),  # nb_pad 512: four whole blocks
+    (600, 4096, 3000, torch.float32),  # nb_pad 304: the recompute's domain
+    (1000, 70_000, 69_000, torch.float32),  # nb_pad 504, 68 persistent rounds
 ])
 def test_k4_kernels_match_plain(cuda_device, int_dtype, nfft, l, count,
                                 db_dtype):
@@ -834,6 +851,53 @@ def test_k5_kernels_equal_k2_k3(cuda_device, int_dtype, nfft, l, count):
     torch.testing.assert_close(tmax_r, stc.psd_tmax_ref(sig, count - 19, a2,
                                                         nb_pad, t_pad),
                                rtol=1e-5, atol=0.0)
+    db_ref, out_ref = stc.db_rescale_recompute_ref(sig, count - 19, a2, gmax,
+                                                   op.num_bins, 1024, t_pad,
+                                                   int_dtype)
+    assert torch.equal(db_r == DB_FLOOR, db_ref == DB_FLOOR)
+    m = db_ref > -120
+    torch.testing.assert_close(db_r[m], db_ref[m], rtol=0, atol=1e-3)
+    if int_dtype == torch.int8:
+        assert (out_r.int() - out_ref.int()).abs().max() <= 1
+    else:
+        mi = out_ref.float() > -120
+        torch.testing.assert_close(out_r.float()[mi], out_ref.float()[mi], rtol=0,
+                                   atol=2e-3 if int_dtype == torch.float32 else 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nfft,l,count", [(600, 70_000, 69_000),
+                                          (1000, 4096, 3000)])
+def test_recompute_tiled_kernels_equal_k4(cuda_device, int_dtype, nfft, l,
+                                          count):
+    """At nb_pad 304 and 504: psd_tmax_tiled's tmax bit-equal to K4a's, and
+    db_rescale_recompute_tiled's db and intensity to K4b's (float32 dB
+    map); spectrogram(recompute=True) launches only these two; each within
+    K4's bounds of its plain version."""
+    sig = torch.as_tensor(_signal(l, count), device=cuda_device)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    a2, p, tmax, gmax, db, out = _k4_run(sig, count, op, torch.float32,
+                                         int_dtype)
+    nb_pad, t_pad = p.shape
+    del p
+    before = dict(_lib.LAUNCHES)
+    tmax_r = stc.psd_tmax_tiled(sig, count - 19, a2, nb_pad, t_pad)
+    db_r, out_r = stc.db_rescale_recompute_tiled(
+        sig, count - 19, a2, tmax_r.amax(), op.num_bins, 1024, t_pad, int_dtype)
+    _, db_s, out_s = stc.spectrogram(sig, count, op, intensity_dtype=int_dtype,
+                                     recompute=True)
+    torch.cuda.synchronize()
+    assert _launch_deltas(before) == {
+        k: 2 * int(k in ("psd_tmax_tiled", "db_rescale_recompute_tiled"))
+        for k in before}
+    assert torch.equal(tmax_r, tmax)
+    assert torch.equal(db_r, db) and torch.equal(out_r, out)
+    t = l - 19
+    assert torch.equal(db_s, db[:op.num_bins, :t])
+    assert torch.equal(out_s, out[:, :t])
+    torch.testing.assert_close(tmax_r.amax(), stc.psd_tmax_ref(
+        sig, count - 19, a2, nb_pad, t_pad).amax(), rtol=1e-5, atol=0.0)
     db_ref, out_ref = stc.db_rescale_recompute_ref(sig, count - 19, a2, gmax,
                                                    op.num_bins, 1024, t_pad,
                                                    int_dtype)
