@@ -5,7 +5,8 @@
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
 and holds each against its plain PyTorch version, timing both: K1a (the
 bf16x3 profile on the tensor cores, also held to the exact profile at
-100 dB), K1b (the exact profile), K6 (the range FFT stored too) and K7 (the
+100 dB), K1c (one bf16 pass on the tensor cores, at 45 dB), K1b (the exact
+profile), K6 (the range FFT stored too) and K7 (the
 fused peak search, T = 1 and 3) at the shapes of the production recording
 path (65,536 frames of 16 chirps × 64 samples), K2-K3 there at STFT nfft
 256, K3 and K5b at nfft 512 (K3's 64-column tiles), K4a/K4b at the
@@ -20,7 +21,12 @@ K5b, bit-equal to K2/K3) and on the same signal at nfft 1,000 (nb_pad 504:
 the bin-blocked recompute pair psd_tmax_tiled/db_rescale_recompute_tiled,
 bit-equal to K4a/K4b), the fidelity profile on a 1,024-frame recording
 (K1a, K4a, K4b) and that recording with impl "pallas_profile" (K1b),
-checking the detections against the injected targets. A 256-frame
+checking the detections against the injected targets. The production
+recording also runs with impl "pallas_profile_bf16" (K1c, K2, K3), held
+to the exact impl "pallas_profile"; with the plain formulations "fused",
+"xla" and "fused_bf16" (first 256 frames against the CPU plain path); and
+with ``stft_impl="xla"`` (the plain export: a float32 dB map, the
+intensity within the display band of the kernels'). A 256-frame
 production recording at ``stft_hop=4`` (plain PyTorch after the frame
 chain, as the JAX package's XLA branch) is held to the CPU plain path.
 The service answers production and default-profile requests,
@@ -337,6 +343,25 @@ def recompute_check(stc, db_floor, sig, nv, a2, nb, t_pad, tiled: bool):
         del db_r, out_r, db_ref, out_ref, d, tmax_ref
     torch.cuda.empty_cache()
     return tmax_err, rescale_err
+
+
+def held_to_exact(what: str, got, exact, max_share: float) -> None:
+    """A production run's detections against the exact chain's (impl
+    "pallas_profile") on the same recording: at most ``max_share`` of the
+    frames detected differently, target ranges exact on the frames both
+    detect."""
+    diff = int((got.detected != exact.detected).sum())
+    both = got.detected & exact.detected
+    n = got.detected.shape[0]
+    check(diff <= max_share * n, f"{what}: {diff} of {n} frames detected "
+          f"differently from the exact chain (tol {max_share:.1%})")
+    check(np.array_equal(got.target_range[:, both], exact.target_range[:, both],
+                         equal_nan=True),
+          f"{what}: ranges equal the exact chain's on the {int(both.sum())} "
+          "frames both detect")
+    print(f"[{what}] {diff} of {n} frames detected differently from the exact "
+          f"chain (tol {max_share:.1%}); ranges equal on the {int(both.sum())} "
+          "frames both detect")
 
 
 def serve_no(svc, work: str, want_range, what: str) -> None:
@@ -793,11 +818,13 @@ def main() -> int:
         text = log.read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
-        b3 = re.search(r"profile_b3_kernel[^\n]*\n[^\n]*\n[^\n]*Used (\d+) registers",
-                       text)
+        # K1a and K1c are profile_wgmma_kernel<3> and <1> (mangled ILi3EE,
+        # ILi1EE): "Function properties for" the name, a stack line, "Used".
+        wg = dict(re.findall(r"Function properties for \S*profile_wgmma_kernelILi(\d)EE"
+                             r"\S*\n[^\n]*\n[^\n]*Used (\d+) registers", text))
         print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} registers "
-              f"a thread (K1a {b3.group(1) if b3 else '?'}), {sum(spills)} bytes "
-              "of spill stores in all")
+              f"a thread (K1a {wg.get('3', '?')}, K1c {wg.get('1', '?')}), "
+              f"{sum(spills)} bytes of spill stores in all")
 
     # The main path's input: a 65,536-frame recording, two targets, about
     # 10% of frames muted so that slow-time packing is not the identity.
@@ -858,6 +885,36 @@ def main() -> int:
                      bound=bound(x.numel() * 4 + 2 * w_hi.numel() * 2
                                  + off.numel() * 4 + prof_bytes,
                                  3 * product_ops, "bf16")))
+
+    # K1c (impl "pallas_profile_bf16"): one bf16 pass, held to its plain
+    # version (the same rounding) and to the exact plain profile (45 dB).
+    prof_c = ftc.fast_time_profile_bf16(x, w_hi, off, cfg.pn)
+    prof_c_ref = ftc.fast_time_profile_bf16_ref(x, w_hi, off, cfg.pn)
+    err = (prof_c - prof_c_ref).abs()
+    k1c_err = float(err.max())
+    k1c_snr = snr_db(prof_c, prof)
+    k1c_ok = bool((err <= 1e-2 + 1e-5 * prof_c_ref.abs()).all()) and k1c_snr >= 45.0
+    print(f"[parity] K1c fast_time_profile_bf16 {tuple(x.shape)} -> "
+          f"{tuple(prof_c.shape)}: max_abs_err {k1c_err:.6g} vs its plain "
+          f"version (tol 1e-2 + 1e-5·|ref|); {k1c_snr:.2f} dB SNR vs the exact "
+          f"plain profile (tol 45 dB) {'ok' if k1c_ok else 'FAIL'}")
+    check(k1c_ok, "K1c parity")
+    del prof_c, prof_c_ref, err
+    ms1c, plain_ms1c, second1c = time_pair(
+        lambda: ftc.fast_time_profile_bf16(x, w_hi, off, cfg.pn),
+        lambda: ftc.fast_time_profile_bf16_ref(x, w_hi, off, cfg.pn))
+    print(f"[time] K1c kernel {ms1c:.4f} ms (second in its turn {second1c:.4f}), "
+          f"plain {plain_ms1c:.4f} ms (median of {REPS}); the same yardstick, "
+          f"not used by the port: one bf16 torch.matmul [{rows_x},128]@[128,512] "
+          f"alone {yard_ms:.4f} ms")
+    rows.append(dict(name="fast_time_profile_bf16", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile_b3.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
+                     max_abs_err=k1c_err, ms=ms1c, plain_ms=plain_ms1c,
+                     ms_second=second1c,
+                     bound=bound(x.numel() * 4 + w_hi.numel() * 2
+                                 + off.numel() * 4 + prof_bytes,
+                                 product_ops, "bf16")))
 
     # K1b, the exact class (impl "pallas_profile").
     prof_b = ftc.fast_time_profile(x, w, off, cfg.pn)
@@ -1210,7 +1267,8 @@ def main() -> int:
           f"{int((psd == DB_FLOOR).sum())} floor values, no floored column")
     main_waterfall = out.waterfall
     main_meas = (out.detected, out.target_range, out.target_speed)
-    del out, inten, psd
+    main_intensity = inten
+    del out, psd
 
     # 5a'. The exact chain, impl "pallas_profile" (K1b), on the same
     # recording, counted: detections, ranges and speeds equal the main
@@ -1239,7 +1297,34 @@ def main() -> int:
     print(f"[exact] detections, ranges and speeds of the main path (K1a) equal "
           f"the exact chain's (K1b); main-path waterfall {main_snr:.2f} dB SNR "
           "against it (tol 100 dB)")
-    del xout, xpipe, main_meas
+    del xpipe, main_meas
+
+    # 5a'''. impl "pallas_profile_bf16" (K1c) on the same recording, counted
+    # and timed, held to the exact chain: ranges exact on the frames both
+    # detect, at most 0.1% of frames detected differently.
+    bpipe = RadarPipeline(cfg, device=dev, impl="pallas_profile_bf16")
+    bpipe.process_recording(s_raw, s_cal)  # warm
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    bout = bpipe.process_recording(raw, calib, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b_launches = dict(_lib.LAUNCHES)
+    print(f"[bf16] process_recording impl='pallas_profile_bf16' {FRAMES} frames: "
+          f"{seconds:.4f} s = {FRAMES / seconds:,.0f} frames/s end to end")
+    print(timer.pretty())
+    print(f"[bf16] launches {b_launches}")
+    check(all(b_launches[k] == 1 for k in ("fast_time_profile_bf16", "psd_phase1",
+                                           "db_rescale"))
+          and all(b_launches[k] == 0 for k in ("fast_time_profile_b3",
+                                               "fast_time_profile", "fast_time")),
+          "impl='pallas_profile_bf16': K1c, K2, K3 once each; K1a, K1b, K6 never")
+    held_to_exact("impl='pallas_profile_bf16'", bout, xout, 0.001)
+    b_snr = snr_db(bout.waterfall, xout.waterfall)
+    print(f"[bf16] waterfall {b_snr:.2f} dB SNR against the exact chain's")
+    del bout, bpipe
 
     # 5b. The materializing chain, impl "pallas" (K6 + K7). First 256 frames
     # through make_frame_chain with the range FFT on the card against the
@@ -1302,6 +1387,96 @@ def main() -> int:
           f"{w_snr:.2f} dB SNR against it (tol 100 dB)")
     del pout, main_waterfall, ppipe
     torch.cuda.empty_cache()
+
+    # 5b'. The plain formulations "fused", "xla", "fused_bf16" (plain
+    # PyTorch, as the JAX package runs them in XLA): 256 frames against the
+    # CPU plain path, then the production recording, counted (the export's
+    # K2 and K3 only) and timed, held to the exact chain.
+    for impl in ("fused", "xla", "fused_bf16"):
+        ipipe = RadarPipeline(cfg, device=dev, impl=impl)
+        got = ipipe.process_recording(s_raw, s_cal)
+        want = RadarPipeline(cfg, device="cpu", impl=impl).process_recording(
+            s_raw, s_cal)
+        check(np.array_equal(got.detected, want.detected)
+              and np.array_equal(got.target_range, want.target_range,
+                                 equal_nan=True), f"{impl} small: detections, ranges")
+        check(np.allclose(got.target_speed, want.target_speed, rtol=1e-6, atol=1e-7,
+                          equal_nan=True), f"{impl} small: speeds")
+        check(bool((np.abs(got.waterfall - want.waterfall)
+                    <= 1e-2 + 1e-5 * np.abs(want.waterfall)).all()),
+              f"{impl} small: waterfall within 1e-2 + 1e-5·|ref|")
+        torch.cuda.synchronize()
+        timer = StageTimer()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        iout = ipipe.process_recording(raw, calib, timer=timer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        i_launches = dict(_lib.LAUNCHES)
+        print(f"[{impl}] 256 frames on cuda match the CPU plain path; "
+              f"process_recording {FRAMES} frames: {seconds:.4f} s = "
+              f"{FRAMES / seconds:,.0f} frames/s end to end; launches {i_launches}")
+        print(timer.pretty())
+        check(i_launches == {k: int(k in ("psd_phase1", "db_rescale"))
+                             for k in i_launches},
+              f"impl={impl!r}: the export's K2 and K3 once, no frame-chain kernel")
+        held_to_exact(f"impl={impl!r}", iout, xout, 0.001 if impl == "fused_bf16"
+                      else 0.0)
+        del iout, ipipe
+        torch.cuda.empty_cache()
+    del xout
+
+    # 5b''. stft_impl="xla" on the production recording: the plain export
+    # (operator product, float32 dB map, rescale, bf16 cast) after K1a. Its
+    # bf16 intensity and the main path's (the kernels') are each held to
+    # the kernel export at float32 intensity on the display band (0.15 dB
+    # on clim [-40, 0]): two bf16 roundings of one value may lie a whole
+    # ulp (0.25 dB at -40 dB) apart, each within half an ulp of it.
+    scfg = RadarConfig.create(default_device_config(),
+                              AlgorithmConfig.production(stft_impl="xla"))
+    spipe = RadarPipeline(scfg, device=dev)
+    spipe.process_recording(s_raw, s_cal)  # warm
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    sout = spipe.process_recording(raw, calib, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    s_launches = dict(_lib.LAUNCHES)
+    print(f"[stft xla] process_recording stft_impl='xla' {FRAMES} frames: "
+          f"{seconds:.4f} s = {FRAMES / seconds:,.0f} frames/s end to end; "
+          f"launches {s_launches}")
+    print(timer.pretty())
+    check(s_launches == {k: int(k == "fast_time_profile_b3") for k in s_launches},
+          "stft_impl='xla': K1a once, no export kernel")
+    check(np.array_equal(sout.detected, present), "stft_impl='xla': detected frames")
+    psd = torch.as_tensor(sout.spectrogram_psd_db)
+    off_bf16 = int((psd.to(torch.bfloat16).float() != psd).sum())
+    check(psd.dtype == torch.float32 and off_bf16 > 0,
+          "stft_impl='xla': a float32 dB map (not bf16-quantized)")
+    inten = sout.spectrogram_intensity
+    chain_out = pipe.run_chain(raw, calib)
+    signal, count_dev = pack_slow_time(chain_out.strongest_chirps,
+                                       chain_out.detected, cfg.pn)
+    _, _, ref = stc.spectrogram(pair_abs(signal).contiguous(), int(count_dev),
+                                op, intensity_dtype=torch.float32)
+    ref = ref[:, :inten.shape[1]].cpu().numpy()
+    del chain_out, signal
+    check(inten.shape == main_intensity.shape == ref.shape,
+          "stft_impl='xla': intensity shape")
+    band = (ref >= -40.0) & (ref <= 0.0)
+    band_err = float(np.abs(inten - ref)[band].max())
+    kern_err = float(np.abs(main_intensity - ref)[band].max())
+    check(band_err <= 0.15 and kern_err <= 0.15,
+          f"stft_impl='xla': intensity {band_err:.4g} dB (the kernels' "
+          f"{kern_err:.4g}) of the float32 kernel export on clim [-40, 0] "
+          "(tol 0.15)")
+    print(f"[stft xla] dB map float32 ({off_bf16} of {psd.numel()} values off the "
+          f"bf16 grid); bf16 intensity within {band_err:.4g} dB of the kernel "
+          f"export at float32 intensity on clim [-40, 0] (the kernels' bf16 "
+          f"intensity {kern_err:.4g}; tol 0.15 dB, {int(band.sum())} values)")
+    del sout, spipe, psd, inten, band, main_intensity, ref
 
     # 5c. The recompute export K5a/K5b on the main path's own packed
     # |signal| (L = 1,048,576, nfft 256, nb_pad 136, float32 dB map): bit-
@@ -1570,10 +1745,13 @@ def main() -> int:
     # Launches of each kernel on the main path that drives it (the row's
     # "launches", that path named in "main_path"): the production
     # run for K1a, K2, K3, the impl "pallas_profile" run for K1b, the
+    # impl "pallas_profile_bf16" run for K1c, the
     # fidelity run for K4a/K4b, the impl "pallas" run for K6/K7,
     # spectrogram(recompute=True) for K5a/K5b and, at nfft 1,000, for the
     # bin-blocked recompute pair.
     paths = {"fast_time_profile_b3": ("production", launches),
+             "fast_time_profile_bf16": ("production impl='pallas_profile_bf16'",
+                                        b_launches),
              "fast_time_profile": ("production impl='pallas_profile'", x_launches),
              "psd_phase1": ("production", launches),
              "db_rescale": ("production", launches),

@@ -1,38 +1,46 @@
-// K1a — the production profile kernel: fused fast-time range DFT,
-// magnitude and max over chirps as a bf16x3 product on the tensor cores.
+// K1a and K1c — the profile kernels on the tensor cores: fused fast-time
+// range DFT, magnitude and max over chirps as bf16 wgmma products, one
+// template on the number of passes.
 //
-// Replaces the Pallas kernel ops/fast_time_pallas.py::_profile_kernel_b3 of
-// the JAX package (impl "pallas_profile_high", the accelerator default).
-// For flat pair rows x [F·PN, 128] (interleaved re, im samples) and the
-// BLOCKED packed weight W [128, 2·K] split once per chain into bf16 halves
-// w_hi = bf16(W), w_lo = bf16(W − w_hi):
+// K1a (three passes) replaces the Pallas kernel
+// ops/fast_time_pallas.py::_profile_kernel_b3 of the JAX package (impl
+// "pallas_profile_high", the accelerator default); K1c (one pass) replaces
+// ops/fast_time_pallas.py::_profile_kernel at Precision.DEFAULT (impl
+// "pallas_profile_bf16"). For flat pair rows x [F·PN, 128] (interleaved
+// re, im samples) and the BLOCKED packed weight W [128, 2·K] split once per
+// chain into bf16 halves w_hi = bf16(W), w_lo = bf16(W − w_hi):
 //
 //     x_hi = bf16(x);  x_lo = bf16(x − x_hi)
-//     y = x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off        (float32 sums)
+//     K1a: y = x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off   (float32 sums)
+//     K1c: y = x_hi·w_hi − off                            (float32 sums)
 //     prof[f, k] = max over the PN chirps of frame f of
 //                  sqrt(y[r, k]² + y[r, K + k]²)
 //
-// the TPU kernel's own split: every product of two bf16 values is exact in
-// float32, and the dropped x_lo·w_lo term is about 2^-18 of |y|.
+// the TPU kernels' arithmetic: every product of two bf16 values is exact in
+// float32; K1a's dropped x_lo·w_lo term is about 2^-18 of |y|, K1c keeps
+// bf16's 8-bit operands (about 2^-9 relative).
 //
-// What bounds it on an H100: operations. Three bf16 products of
-// 2·F·16·128·512 flops (412 GFLOP at 65,536 frames) take 0.417 ms at the
-// 989 TFLOP/s bf16 peak; the x read (537 MB) alone takes 0.16 ms at
-// 3.35 TB/s. So the products go to the tensor cores through wgmma, and
-// everything else hides under them.
+// What bounds them on an H100, at 65,536 frames: K1a operations — three
+// bf16 products of 2·F·16·128·512 flops (412 GFLOP) take 0.417 ms at the
+// 989 TFLOP/s bf16 peak, the x read (537 MB) alone 0.16 ms at 3.35 TB/s.
+// K1c bytes — its one product (137 GFLOP, 0.139 ms) is under the 537 MB of
+// x and 67 MB of profile (0.180 ms). So the products go to the tensor
+// cores through wgmma, and everything else hides under them; at one pass
+// the reads of x set the pace.
 //
 // Design. A block owns a slice of 64 bins: 128 columns of W (64 re, then
-// 64 im), w_hi and w_lo each 32 KiB of bf16, resident in shared memory for
-// the block's life in wgmma's K-major core-matrix layout (8 columns × 8 K
-// values per 128-byte core matrix, no swizzle). Its three warpgroups walk
-// 64-row tiles of x (four frames) independently, each with one x buffer
-// (rows padded to 136 floats, so the fragment loads below hit 32 distinct
-// banks). Per 16-deep K step a warpgroup loads its A fragments from shared
-// memory straight into the register layout of wgmma's A operand, splitting
-// each float pair into hi and lo bf16 pairs on the way, and issues that
-// step's three m64n128k16 products x_hi·w_hi, x_lo·w_hi and x_hi·w_lo into
-// one float32 accumulator (A from registers, B from shared memory), so the
-// split of one step overlaps the products of the previous one. Once all
+// 64 im), w_hi (and for K1a w_lo) 32 KiB of bf16 each, resident in shared
+// memory for the block's life in wgmma's K-major core-matrix layout (8
+// columns × 8 K values per 128-byte core matrix, no swizzle). Its three
+// warpgroups walk 64-row tiles of x (four frames) independently, each with
+// one x buffer (rows padded to 136 floats, so the fragment loads below hit
+// 32 distinct banks). Per 16-deep K step a warpgroup loads its A fragments
+// from shared memory straight into the register layout of wgmma's A
+// operand, rounding each float pair to a bf16 pair on the way (K1a splits
+// it into hi and lo pairs), and issues that step's m64n128k16 products —
+// K1a x_hi·w_hi, x_lo·w_hi and x_hi·w_lo, K1c x_hi·w_hi — into one float32
+// accumulator (A from registers, B from shared memory), so the conversion
+// of one step overlaps the products of the previous one. Once all
 // fragments are in registers, cp.async refills the buffer with the
 // warpgroup's next tile while the products and the epilogue run. wgmma and
 // not mma.sync: one warpgroup instruction covers 64 rows × 128 columns,
@@ -40,7 +48,7 @@
 // each warp's B fragments itself, at more shared-memory traffic than the
 // SM has for this ratio), and runs asynchronously, so one warpgroup's
 // split and epilogue overlap the others' products (a fourth warpgroup
-// would not fit the register file).
+// would not fit K1a's register file).
 // The accumulator layout puts the re column of a bin (j < 8) and its im
 // column (j + 8) in the same thread, and the 16 rows of one frame in one
 // warp: the epilogue subtracts off, takes re² + im², folds the thread's
@@ -73,8 +81,15 @@ constexpr int kXFloats = kRows * kXStride;
 constexpr int kLbo = 128;
 constexpr int kSbo = (kIn / 8) * kLbo;
 constexpr int kWBytes = kSliceCols * kIn * 2;  // one bf16 slice: 32 KiB
-constexpr int kSmemBytes =
-    2 * kWBytes + kWarpgroups * kXFloats * 4 + kSliceCols * 4;
+
+// Weight halves staged: w_hi and w_lo for three passes, w_hi for one.
+__host__ __device__ constexpr int weight_halves(int passes) {
+  return passes == 3 ? 2 : 1;
+}
+__host__ __device__ constexpr int smem_bytes(int passes) {
+  return weight_halves(passes) * kWBytes + kWarpgroups * kXFloats * 4 +
+         kSliceCols * 4;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -159,16 +174,26 @@ __device__ __forceinline__ void split_pair(float2 v, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// A float pair → its bf16 pair (round to nearest even), packed as above.
+__device__ __forceinline__ uint32_t bf16_pair(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// kPasses 3: K1a (bf16x3); 1: K1c (one bf16 pass, w_lo unused).
+template <int kPasses>
 __global__ void __launch_bounds__(kThreads, 1)
-profile_b3_kernel(const float* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w_hi,
-                  const __nv_bfloat16* __restrict__ w_lo,
-                  const float* __restrict__ off, float* __restrict__ prof,
-                  int rows, int k, int row_tiles) {
+profile_wgmma_kernel(const float* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w_hi,
+                     const __nv_bfloat16* __restrict__ w_lo,
+                     const float* __restrict__ off, float* __restrict__ prof,
+                     int rows, int k, int row_tiles) {
+  static_assert(kPasses == 1 || kPasses == 3, "one bf16 pass or bf16x3");
+  constexpr int kHalves = weight_halves(kPasses);
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* whs = smem;                                   // w_hi slice
-  uint8_t* wls = smem + kWBytes;                         // w_lo slice
-  float* xs = reinterpret_cast<float*>(smem + 2 * kWBytes);
+  uint8_t* wls = smem + kWBytes;                         // w_lo slice (K1a)
+  float* xs = reinterpret_cast<float*>(smem + kHalves * kWBytes);
   float* offs = xs + kWarpgroups * kXFloats;            // [kSliceCols]
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -200,7 +225,7 @@ profile_b3_kernel(const float* __restrict__ x,
 
   // The W slice, once: eight columns (16 bytes) of one K row per load,
   // scattered into the core-matrix layout.
-  for (int i = tid; i < 2 * kIn * (kSliceCols / 8); i += kThreads) {
+  for (int i = tid; i < kHalves * kIn * (kSliceCols / 8); i += kThreads) {
     const int half = i / (kIn * (kSliceCols / 8));
     const int j = i % (kIn * (kSliceCols / 8));
     const int kk = j / (kSliceCols / 8);
@@ -233,9 +258,9 @@ profile_b3_kernel(const float* __restrict__ x,
     cp_async_wait_all();
     warpgroup_sync(wg);  // the tile is in
 
-    // Per K step: the A fragments of the warp's 16 rows, split into hi
-    // and lo, then that step's three products, so the split of step
-    // ks + 1 overlaps the tensor cores' work on step ks.
+    // Per K step: the A fragments of the warp's 16 rows, rounded to bf16
+    // (K1a: split into hi and lo), then that step's products, so the
+    // conversion of step ks + 1 overlaps the tensor cores' work on step ks.
     const float* xr0 = xwg + (warp * 16 + g) * kXStride + 2 * t;
     const float* xr1 = xr0 + 8 * kXStride;
     uint32_t ah[kKSteps][4], al[kKSteps][4];
@@ -243,16 +268,26 @@ profile_b3_kernel(const float* __restrict__ x,
     for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      split_pair(*reinterpret_cast<const float2*>(xr0 + 16 * ks), ah[ks][0], al[ks][0]);
-      split_pair(*reinterpret_cast<const float2*>(xr1 + 16 * ks), ah[ks][1], al[ks][1]);
-      split_pair(*reinterpret_cast<const float2*>(xr0 + 16 * ks + 8), ah[ks][2], al[ks][2]);
-      split_pair(*reinterpret_cast<const float2*>(xr1 + 16 * ks + 8), ah[ks][3], al[ks][3]);
+      const float2 v[4] = {*reinterpret_cast<const float2*>(xr0 + 16 * ks),
+                           *reinterpret_cast<const float2*>(xr1 + 16 * ks),
+                           *reinterpret_cast<const float2*>(xr0 + 16 * ks + 8),
+                           *reinterpret_cast<const float2*>(xr1 + 16 * ks + 8)};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (kPasses == 3) {
+          split_pair(v[q], ah[ks][q], al[ks][q]);
+        } else {
+          ah[ks][q] = bf16_pair(v[q]);
+        }
+      }
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       // Two core matrices (256 bytes) per K step: +16 in the address field.
       const uint64_t step = static_cast<uint64_t>(ks * (2 * kLbo >> 4));
       wgmma_m64n128k16(acc, ah[ks], desc_hi + step, ks > 0 ? 1 : 0);
-      wgmma_m64n128k16(acc, al[ks], desc_hi + step, 1);
-      wgmma_m64n128k16(acc, ah[ks], desc_lo + step, 1);
+      if constexpr (kPasses == 3) {
+        wgmma_m64n128k16(acc, al[ks], desc_hi + step, 1);
+        wgmma_m64n128k16(acc, ah[ks], desc_lo + step, 1);
+      }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     // The fragments are in registers: the buffer takes the next tile while
@@ -267,7 +302,7 @@ profile_b3_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         fence_reg(ah[ks][q]);
-        fence_reg(al[ks][q]);
+        if constexpr (kPasses == 3) fence_reg(al[ks][q]);
       }
     }
 
@@ -321,19 +356,14 @@ profile_b3_kernel(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x [rows, 128] f32; w_hi, w_lo [128, 2k] bf16 (blocked, split); off [2k]
-// f32; prof [rows/16, k] f32. rows must be a multiple of 16 and k of 64;
-// pointers 16-byte aligned. Returns cudaGetLastError() after the launch.
-extern "C" int fast_time_profile_b3_launch(const float* x,
-                                           const __nv_bfloat16* w_hi,
-                                           const __nv_bfloat16* w_lo,
-                                           const float* off, float* prof,
-                                           int rows, int k, void* stream) {
+template <int kPasses>
+int launch_profile(const float* x, const __nv_bfloat16* w_hi,
+                   const __nv_bfloat16* w_lo, const float* off, float* prof,
+                   int rows, int k, void* stream) {
+  auto kernel = profile_wgmma_kernel<kPasses>;
+  constexpr int smem = smem_bytes(kPasses);
   cudaError_t err = cudaFuncSetAttribute(
-      profile_b3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -346,8 +376,28 @@ extern "C" int fast_time_profile_b3_launch(const float* x,
   const int need = (row_tiles + kWarpgroups - 1) / kWarpgroups;
   if (tiles_y > need) tiles_y = need;
   if (tiles_y < 1) tiles_y = 1;
-  profile_b3_kernel<<<dim3(slices, tiles_y), kThreads, kSmemBytes,
-                      (cudaStream_t)stream>>>(x, w_hi, w_lo, off, prof, rows, k,
-                                              row_tiles);
+  kernel<<<dim3(slices, tiles_y), kThreads, smem, (cudaStream_t)stream>>>(
+      x, w_hi, w_lo, off, prof, rows, k, row_tiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x [rows, 128] f32; w_hi, w_lo [128, 2k] bf16 (blocked, split); off [2k]
+// f32; prof [rows/16, k] f32. rows must be a multiple of 16 and k of 64;
+// pointers 16-byte aligned. Returns cudaGetLastError() after the launch.
+extern "C" int fast_time_profile_b3_launch(const float* x,
+                                           const __nv_bfloat16* w_hi,
+                                           const __nv_bfloat16* w_lo,
+                                           const float* off, float* prof,
+                                           int rows, int k, void* stream) {
+  return launch_profile<3>(x, w_hi, w_lo, off, prof, rows, k, stream);
+}
+
+// K1c: as above with w_hi alone (one bf16 pass).
+extern "C" int fast_time_profile_bf16_launch(const float* x,
+                                             const __nv_bfloat16* w_hi,
+                                             const float* off, float* prof,
+                                             int rows, int k, void* stream) {
+  return launch_profile<1>(x, w_hi, nullptr, off, prof, rows, k, stream);
 }

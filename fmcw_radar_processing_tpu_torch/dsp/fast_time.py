@@ -11,8 +11,10 @@ one K×NTS complex matrix built on the host in float64
 (:func:`build_fast_time_matrix`). :class:`PackedFastTime` applies it as ONE
 real [2·NTS, 2·K] matmul over flat pair rows, with INTERLEAVED output
 columns (column 2k is the real part of bin k, 2k+1 its imaginary part).
-The CUDA profile kernel (ops/fast_time_cuda.py) takes a different packing,
-with BLOCKED re|im columns.
+:class:`FastTimeOperator` applies it as four real einsums over the
+re/im planes (the JAX package's impl "xla"). The CUDA profile kernels
+(ops/fast_time_cuda.py) take a different packing, with BLOCKED re|im
+columns.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ import torch
 
 from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.windows import blackman
-from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, pin_f32_matmul
+from fmcw_radar_processing_tpu_torch.utils.cplx import (
+    pair_abs,
+    pair_matmul,
+    pin_f32_matmul,
+)
 
 
 def dft_matrix(k: int, n: int) -> np.ndarray:
@@ -45,6 +51,38 @@ def build_fast_time_matrix(cfg: RadarConfig) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class FastTimeOperator:
+    """The fast-time operator as a complex contraction of the re/im planes:
+    four real float32 einsums (utils/cplx.py::pair_matmul), the JAX
+    package's ``FastTimeOperator`` (impl "xla")."""
+
+    m_re: torch.Tensor  # (K, NTS) float32 on the operator's device
+    m_im: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: RadarConfig,
+               device: torch.device | str) -> "FastTimeOperator":
+        m = build_fast_time_matrix(cfg)
+        return cls(m_re=torch.as_tensor(m.real.astype(np.float32), device=device),
+                   m_im=torch.as_tensor(m.imag.astype(np.float32), device=device))
+
+    def offset(self, calib: torch.Tensor) -> torch.Tensor:
+        """M @ calib (the affine part). calib: [NTS, 2] pair → [K, 2]."""
+        return pair_matmul(calib.to(torch.float32), self.m_re, self.m_im,
+                           "n,kn->k")
+
+    def __call__(self, raw: torch.Tensor, calib: torch.Tensor) -> torch.Tensor:
+        """Range FFT [..., PN, K, 2] of raw [..., PN, NTS, 2] pairs or flat
+        pair rows [..., PN, 2·NTS], minus the calibration offset."""
+        nts = self.m_re.shape[1]
+        if raw.shape[-1] == 2 * nts:
+            raw = raw.reshape(*raw.shape[:-1], nts, 2)
+        y = pair_matmul(raw.to(torch.float32), self.m_re, self.m_im,
+                        "...pn,kn->...pk")
+        return y - self.offset(calib)
+
+
+@dataclasses.dataclass(frozen=True)
 class PackedFastTime:
     """The fast-time operator as one real matmul on flat pair rows.
 
@@ -54,16 +92,25 @@ class PackedFastTime:
         Y = X @ W  →  Y [rows, 2k+(0|1)] = (re|im) of bin k
 
     ``w`` is the host copy; ``w_t`` the same matrix on ``device``.
+
+    ``compute_dtype`` is the operand type of :meth:`rf` and :meth:`profile`
+    (the JAX package's impls "fused", float32, and "fused_bf16",
+    bfloat16). At bfloat16 both operands are rounded to bf16 and multiplied
+    in float32: every product of two bf16 values is exact there, so this is
+    the TPU's bf16 pass with float32 accumulation, with a float32 result
+    (a bf16 ``torch.matmul`` would round every output to bf16 as well).
+    :meth:`offset` and :meth:`rf_at_bins` stay float32, as in JAX.
     """
 
     w: np.ndarray  # (2·NTS, 2·K) float32, interleaved output columns
     w_t: torch.Tensor
     nts: int
     k: int
+    compute_dtype: torch.dtype = torch.float32
 
     @classmethod
-    def create(cls, cfg: RadarConfig,
-               device: torch.device | str) -> "PackedFastTime":
+    def create(cls, cfg: RadarConfig, device: torch.device | str,
+               compute_dtype: torch.dtype = torch.float32) -> "PackedFastTime":
         m = build_fast_time_matrix(cfg)  # (K, NTS) complex
         k, nts = m.shape
         w = np.zeros((2 * nts, 2 * k), np.float32)
@@ -71,7 +118,17 @@ class PackedFastTime:
         w[0::2, 1::2] = m.imag.T
         w[1::2, 0::2] = -m.imag.T
         w[1::2, 1::2] = m.real.T
-        return cls(w=w, w_t=torch.as_tensor(w, device=device), nts=nts, k=k)
+        return cls(w=w, w_t=torch.as_tensor(w, device=device), nts=nts, k=k,
+                   compute_dtype=compute_dtype)
+
+    def _matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., 2·NTS] @ W in compute_dtype operands, float32 sums and
+        result."""
+        pin_f32_matmul()
+        if self.compute_dtype == torch.float32:
+            return x @ self.w_t
+        return (x.to(self.compute_dtype).to(torch.float32)
+                @ self.w_t.to(self.compute_dtype).to(torch.float32))
 
     def _flat_rows(self, raw: torch.Tensor) -> torch.Tensor:
         """[..., NTS, 2] pair or [..., 2·NTS] flat rows → [..., 2·NTS] f32."""
@@ -88,9 +145,8 @@ class PackedFastTime:
 
     def rf(self, raw: torch.Tensor, calib: torch.Tensor) -> torch.Tensor:
         """Full range FFT [..., PN, K, 2] via one matmul."""
-        pin_f32_matmul()
         x = self._flat_rows(raw)
-        y = (x @ self.w_t).reshape(*x.shape[:-1], self.k, 2)
+        y = self._matmul(x).reshape(*x.shape[:-1], self.k, 2)
         return y - self.offset(calib)
 
     def profile(self, raw: torch.Tensor, calib: torch.Tensor) -> torch.Tensor:

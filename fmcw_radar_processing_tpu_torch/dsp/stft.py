@@ -149,6 +149,23 @@ class StftOperator:
                                  times=times)
 
 
+def resolve_stft_impl(impl: str, hop: int) -> str:
+    """The export ``AlgorithmConfig.stft_impl`` selects, as the JAX
+    package's ``resolve_stft_impl`` and its pipeline's ``_stft_stage``:
+    "pallas" is the export kernels (ops/stft_cuda.py::spectrogram), which
+    take hop 1 only and raise ValueError otherwise; "auto" is the kernels
+    at hop 1 on either device; every other value is "xla", the plain
+    composition (operator product, float32 dB map, rescale, cast)."""
+    if impl == "auto":
+        impl = "pallas" if hop == 1 else "xla"
+    if impl != "pallas":
+        return "xla"
+    if hop != 1:
+        raise ValueError(f"stft_impl='pallas': the export kernels support "
+                         f"hop=1 only, got hop={hop}")
+    return "pallas"
+
+
 def quantize_db_int8(db: torch.Tensor) -> torch.Tensor:
     """dB float32 → int8 code: round((db − lo)/step) − 128, half to even."""
     lo, _ = INT8_DB_RANGE

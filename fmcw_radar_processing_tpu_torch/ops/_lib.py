@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fast_time_profile_b3": 0, "fast_time_profile": 0,
-            "psd_phase1": 0, "db_rescale": 0,
+            "fast_time_profile_bf16": 0, "psd_phase1": 0, "db_rescale": 0,
             "psd_phase1_tiled": 0, "db_rescale_tiled": 0, "fast_time": 0,
             "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0,
             "psd_tmax_tiled": 0, "db_rescale_recompute_tiled": 0}
@@ -108,6 +108,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fast_time_profile_launch.restype = i
     lib.fast_time_profile_b3_launch.argtypes = [p, p, p, p, p, i, i, p]
     lib.fast_time_profile_b3_launch.restype = i
+    lib.fast_time_profile_bf16_launch.argtypes = [p, p, p, p, i, i, p]
+    lib.fast_time_profile_bf16_launch.restype = i
     lib.psd_phase1_launch.argtypes = [p, i, p, i, p, p, i, i, p]
     lib.psd_phase1_launch.restype = i
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,

@@ -1,6 +1,7 @@
-"""K1a, K1b and K6: fused fast-time range DFT + magnitude + max over chirps.
+"""K1a, K1b, K1c and K6: fused fast-time range DFT + magnitude + max over
+chirps.
 
-Three wrappers:
+Four wrappers:
 
   K1a :func:`fast_time_profile_b3` — the profile [F, K] only, as the bf16x3
       product on the tensor cores (``csrc/fast_time_profile_b3.cu``;
@@ -10,19 +11,24 @@ Three wrappers:
   K1b :func:`fast_time_profile` — the same profile at exact float32 on the
       CUDA cores (``csrc/fast_time_profile.cu``; replaces
       ``_profile_kernel``, impl "pallas_profile", the HIGHEST class);
+  K1c :func:`fast_time_profile_bf16` — the same profile as one bf16 pass on
+      the tensor cores (K1a's kernel with the hi·hi product alone; replaces
+      ``_profile_kernel`` at ``Precision.DEFAULT``, impl
+      "pallas_profile_bf16");
   K6  :func:`fast_time` — K1b's kernel storing the range FFT [F, PN, K, 2]
       as well (replaces ``ops/fast_time_pallas.py::_kernel``, impl
       "pallas").
 
 Each launches its kernel for CUDA tensors and runs its plain PyTorch
 version (:func:`fast_time_profile_b3_ref`, :func:`fast_time_profile_ref`,
-:func:`fast_time_ref`) for CPU tensors. None falls back: on a CUDA tensor
-it launches or raises.
+:func:`fast_time_profile_bf16_ref`, :func:`fast_time_ref`) for CPU
+tensors. None falls back: on a CUDA tensor it launches or raises.
 
 The kernels take the BLOCKED packed weight of
 :func:`_packed_blocked_weight` (columns [:K] give the real part of each
 bin, [K:] the imaginary part), not ``PackedFastTime.w``'s interleaved
-columns; K1a takes it split into bf16 halves by :func:`split_bf16x3`.
+columns; K1a takes it split into bf16 halves by :func:`split_bf16x3`, K1c
+the high half alone.
 """
 
 from __future__ import annotations
@@ -88,6 +94,18 @@ def fast_time_profile_b3_ref(x: torch.Tensor, w_hi: torch.Tensor,
     x_lo = (x - x_hi).to(torch.bfloat16).to(torch.float32)
     wh, wl = w_hi.to(torch.float32), w_lo.to(torch.float32)
     y = x_hi @ wh + x_lo @ wh + x_hi @ wl - off
+    mag = torch.sqrt(y[:, :k] * y[:, :k] + y[:, k:] * y[:, k:])
+    return mag.reshape(-1, pn, k).amax(dim=1)
+
+
+def fast_time_profile_bf16_ref(x: torch.Tensor, w_hi: torch.Tensor,
+                               off: torch.Tensor, pn: int) -> torch.Tensor:
+    """Plain version of K1c: bf16(x)·w_hi − off as one float32 matmul of
+    the bf16-rounded operands (every product exact in float32), |·| and the
+    max over the PN chirps of each frame → profile [F, K]."""
+    pin_f32_matmul()
+    k = w_hi.shape[1] // 2
+    y = x.to(torch.bfloat16).to(torch.float32) @ w_hi.to(torch.float32) - off
     mag = torch.sqrt(y[:, :k] * y[:, :k] + y[:, k:] * y[:, k:])
     return mag.reshape(-1, pn, k).amax(dim=1)
 
@@ -160,6 +178,31 @@ def fast_time_profile_b3(x: torch.Tensor, w_hi: torch.Tensor,
                                          w_lo.data_ptr(), off.data_ptr(),
                                          prof.data_ptr(), rows, k, stream)
     _lib.check_launch("fast_time_profile_b3", rc)
+    return prof
+
+
+def fast_time_profile_bf16(x: torch.Tensor, w_hi: torch.Tensor,
+                           off: torch.Tensor, pn: int) -> torch.Tensor:
+    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS], one bf16
+    pass with float32 sums.
+
+    w_hi: the high half of :func:`split_bf16x3` of the blocked weight. CPU
+    tensors: the plain version. CUDA tensors: the K1c kernel.
+    """
+    if x.device.type == "cpu":
+        return fast_time_profile_bf16_ref(x, w_hi, off, pn)
+    lib = _lib.load_kernels()
+    _check(x, w_hi, off, pn, torch.bfloat16)
+    rows = x.shape[0]
+    k = w_hi.shape[1] // 2
+    prof = torch.empty((rows // pn, k), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return prof
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.fast_time_profile_bf16_launch(x.data_ptr(), w_hi.data_ptr(),
+                                           off.data_ptr(), prof.data_ptr(), rows,
+                                           k, stream)
+    _lib.check_launch("fast_time_profile_bf16", rc)
     return prof
 
 

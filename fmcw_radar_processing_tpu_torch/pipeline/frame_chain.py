@@ -1,34 +1,43 @@
 """The per-frame processing chain, batched over a whole recording.
 
 The reference iterates frames serially (radar_processing.m:197-261); here
-every stage is batched over the [F, PN, 2·NTS] recording. Two
-formulations, chosen by ``impl`` as in the JAX package's
-``make_frame_chain``:
+every stage is batched over the [F, PN, 2·NTS] recording. ``impl`` picks
+the formulation, with the JAX package's ``make_frame_chain`` names:
 
-  the profile chain ("pallas_profile", "pallas_profile_high"):
+  the profile chain ("pallas_profile", "pallas_profile_high",
+  "pallas_profile_bf16"):
     1. profile [F, K] — range DFT, |·| and the max over chirps, without
        writing the range-FFT cube (ops/fast_time_cuda.py): kernel K1a,
        the bf16x3 product on the tensor cores, for "pallas_profile_high";
-       kernel K1b, exact float32, for "pallas_profile";
+       kernel K1b, exact float32, for "pallas_profile"; kernel K1c, one
+       bf16 pass on the tensor cores, for "pallas_profile_bf16";
     2. peak search (dsp/detection.py);
-    3. the detected bins' chirp rows, recomputed with a gathered-weight
-       matmul (PackedFastTime.rf_at_bins), then a 16-point Doppler matmul
-       at those bins only and the Doppler peak / measurements.
+    3. the detected bins' chirp rows, recomputed at float32 with a
+       gathered-weight matmul (PackedFastTime.rf_at_bins), then a 16-point
+       Doppler matmul at those bins only and the Doppler peak /
+       measurements.
     With ``return_range_fft`` these impls take the JAX package's plain
-    branch instead: the cube by one matmul (PackedFastTime.rf), then
-    range_profile and search_peaks.
+    branch instead: the cube by one exact float32 matmul
+    (PackedFastTime.rf), then range_profile and search_peaks.
 
-  the materializing chain ("pallas"):
+  the packed chain ("fused", "fused_bf16"): PackedFastTime.profile at
+    float32 or with bf16 operands, then steps 2-3 above; with
+    ``return_range_fft``, PackedFastTime.rf at that type and the
+    materializing steps below.
+
+  the materializing chain ("pallas", "xla"):
     1. range FFT [F, PN, K, 2] and profile: kernel K6
-       (ops/fast_time_cuda.py::fast_time);
-    2. peak search: kernel K7 (ops/detect_cuda.py);
+       (ops/fast_time_cuda.py::fast_time) for "pallas"; for "xla"
+       FastTimeOperator's four einsums, then range_profile;
+    2. peak search: kernel K7 (ops/detect_cuda.py) for "pallas",
+       search_peaks for "xla";
     3. the Doppler rows and the strongest chirp gathered from the cube.
 
-"auto" resolves by device, as the JAX package's resolve_impl does by
-backend: "pallas_profile_high" on the card, the exact "pallas_profile" on
-the CPU (the counterpart of the JAX package's exact "fused" there). The
-JAX impls "fused", "xla", "fused_bf16" and "pallas_profile_bf16" are not
-ported (ROADMAP.md, Queue 1).
+"fused", "fused_bf16" and "xla" are plain PyTorch on either device, as
+the JAX package computes them in XLA. "auto" resolves by device, as the
+JAX package's resolve_impl does by backend: "pallas_profile_high" on the
+card, the exact "pallas_profile" on the CPU (the counterpart of the JAX
+package's exact "fused" there).
 """
 
 from __future__ import annotations
@@ -39,7 +48,11 @@ import torch
 
 from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.detection import DetectionResult, search_peaks
-from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime, range_profile
+from fmcw_radar_processing_tpu_torch.dsp.fast_time import (
+    FastTimeOperator,
+    PackedFastTime,
+    range_profile,
+)
 from fmcw_radar_processing_tpu_torch.dsp.slow_time import (
     DopplerPeaks,
     SlowTimeOperator,
@@ -54,12 +67,13 @@ from fmcw_radar_processing_tpu_torch.ops.fast_time_cuda import (
     fast_time,
     fast_time_profile,
     fast_time_profile_b3,
+    fast_time_profile_bf16,
     split_bf16x3,
 )
 from fmcw_radar_processing_tpu_torch.utils.cplx import pair_matmul, resolve_device
 
-PROFILE_IMPLS = ("pallas_profile", "pallas_profile_high")
-UNPORTED_IMPLS = ("fused", "xla", "fused_bf16", "pallas_profile_bf16")
+PROFILE_IMPLS = ("pallas_profile", "pallas_profile_high", "pallas_profile_bf16")
+IMPLS = ("fused", "xla", "pallas", *PROFILE_IMPLS, "fused_bf16")
 
 
 class FrameChainOutputs(NamedTuple):
@@ -82,17 +96,12 @@ class FrameChainOutputs(NamedTuple):
 def resolve_impl(impl: str, device: torch.device | str) -> str:
     """The impl a chain on ``device`` runs: "auto" is "pallas_profile_high"
     (bf16x3, K1a) on the card and "pallas_profile" (exact float32) on the
-    CPU. Raises ValueError for an unknown impl and NotImplementedError for
-    a JAX impl not ported."""
+    CPU; the other names of ``IMPLS`` stay. Raises ValueError for an
+    unknown impl."""
     if impl == "auto":
         impl = ("pallas_profile_high" if torch.device(device).type == "cuda"
                 else "pallas_profile")
-    if impl in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"impl {impl!r} is not ported to PyTorch (ROADMAP.md, Queue 1); "
-            f"the port runs 'auto', 'pallas', 'pallas_profile' and "
-            f"'pallas_profile_high'")
-    if impl != "pallas" and impl not in PROFILE_IMPLS:
+    if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     return impl
 
@@ -111,12 +120,15 @@ def make_frame_chain(
     """
     device = resolve_device(device)
     impl = resolve_impl(impl, device)
-    pft = PackedFastTime.create(cfg, device)
+    pft = PackedFastTime.create(
+        cfg, device, torch.bfloat16 if impl == "fused_bf16" else torch.float32)
+    ft = FastTimeOperator.create(cfg, device) if impl == "xla" else None
     st = SlowTimeOperator.create(cfg, device)
     w_blocked = blocked_weight(cfg, device)
-    # K1a's bf16 halves of the weight, split once per chain on the device,
-    # only for the chain that runs K1a.
-    if impl == "pallas_profile_high" and not return_range_fft:
+    kernel_profile = impl in PROFILE_IMPLS and not return_range_fft
+    # The bf16 halves of the weight for K1a (both) and K1c (w_hi), split
+    # once per chain on the device.
+    if kernel_profile and impl != "pallas_profile":
         w_hi, w_lo = split_bf16x3(w_blocked)
     pn, nts = cfg.pn, cfg.nts
 
@@ -128,16 +140,21 @@ def make_frame_chain(
             rf, profile = fast_time(x, w_blocked, calib_offset(calib, w_blocked),
                                     pn)  # [F, PN, K, 2], [F, K]
             det = search_peaks_fused(profile, cfg)  # [F, T]
-        elif not return_range_fft:
+        elif kernel_profile:
             x = raw.reshape(f * pn, 2 * nts)
             off = calib_offset(calib, w_blocked)
             if impl == "pallas_profile_high":
                 profile = fast_time_profile_b3(x, w_hi, w_lo, off, pn)
+            elif impl == "pallas_profile_bf16":
+                profile = fast_time_profile_bf16(x, w_hi, off, pn)
             else:
                 profile = fast_time_profile(x, w_blocked, off, pn)
             det = search_peaks(profile, cfg)  # [F, T]; rf never materialized
+        elif impl in ("fused", "fused_bf16") and not return_range_fft:
+            profile = pft.profile(raw, calib)  # [F, K]
+            det = search_peaks(profile, cfg)  # [F, T]
         else:
-            rf = pft.rf(raw, calib)  # [F, PN, K, 2]
+            rf = ft(raw, calib) if impl == "xla" else pft.rf(raw, calib)
             profile = range_profile(rf)  # [F, K]
             det = search_peaks(profile, cfg)  # [F, T]
         # Doppler only at detected bins (radar_processing.m:216-219).

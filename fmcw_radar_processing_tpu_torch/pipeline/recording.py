@@ -26,6 +26,7 @@ from fmcw_radar_processing_tpu_torch.dsp.stft import (
     log_frequency_rescale,
     psd_db,
     quantize_db_int8,
+    resolve_stft_impl,
     stft_frame_count,
 )
 from fmcw_radar_processing_tpu_torch.ops.stft_cuda import spectrogram
@@ -108,11 +109,16 @@ class RadarPipeline:
     device: "cuda" by default; "cpu" runs the kernels' plain versions.
     Raises RuntimeError for "cuda" without a card.
 
-    impl: the frame chain's formulation (pipeline/frame_chain.py): "auto"
-    (the profile chain: bf16x3 K1a on the card, the exact plain version on
-    the CPU), "pallas" (the materializing chain, K6 + K7), or the JAX names
-    of the profile chain, "pallas_profile" (exact, K1b) and
-    "pallas_profile_high" (bf16x3, K1a).
+    impl: the frame chain's formulation (pipeline/frame_chain.py), any of
+    the JAX package's names: "auto" (the profile chain: bf16x3 K1a on the
+    card, the exact plain version on the CPU), "pallas_profile" (exact,
+    K1b), "pallas_profile_high" (bf16x3, K1a), "pallas_profile_bf16" (one
+    bf16 pass, K1c), "pallas" (the materializing chain, K6 + K7), and the
+    plain formulations "fused", "fused_bf16" and "xla".
+
+    The export follows ``AlgorithmConfig.stft_impl``
+    (dsp/stft.py::resolve_stft_impl): the export kernels for "auto" at hop
+    1 and for "pallas", the plain composition otherwise.
     """
 
     def __init__(self, cfg: RadarConfig, filename: str = "radar_data",
@@ -158,6 +164,7 @@ class RadarPipeline:
             window_length=wl, beta=a.stft_kaiser_beta,
             nfft=a.stft_nfft or next_pow2(count),  # the nfft bucket (:273)
             fs=1.0 / self.cfg.derived.prt, hop=a.stft_hop or 1)
+        kernels = resolve_stft_impl(a.stft_impl, op.hop) == "pallas"
         n_valid = stft_frame_count(count, wl, op.hop)
         int_dtype = _STORE_DTYPES[a.intensity_dtype]
         db_store = _STORE_DTYPES[a.stft_db_store]
@@ -171,13 +178,13 @@ class RadarPipeline:
         with tm.stage("stft", items=count):
             # Reference: STFT of |slow_time| (radar_processing.m:270).
             sig = pair_abs(signal)
-            if op.hop == 1:
+            if kernels:
                 _, db, intensity = spectrogram(
                     sig, count, op, a.max_freq_bins, intensity_dtype=int_dtype,
                     db_store_dtype=db_store)
             else:
-                # The JAX package's XLA branch, which it takes for every
-                # hop ≠ 1: the operator product, the float32 dB map
+                # The JAX package's XLA branch (stft_impl "xla", and "auto"
+                # at hop ≠ 1): the operator product, the float32 dB map
                 # (whatever stft_db_store says), the rescale, then the cast.
                 db = psd_db(op(sig, valid_len=count).power)
                 _, intensity = log_frequency_rescale(

@@ -36,10 +36,7 @@ from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator
 from fmcw_radar_processing_tpu_torch.ops import detect_cuda as dtc
 from fmcw_radar_processing_tpu_torch.ops import fast_time_cuda as ftc
 from fmcw_radar_processing_tpu_torch.ops import stft_cuda as stc
-from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
-    UNPORTED_IMPLS,
-    make_frame_chain,
-)
+from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
 
@@ -331,14 +328,6 @@ def test_pipeline_impl_pallas_display_band_vs_oracle(cfg, rng):
     band = intensity > -40
     assert band.sum() > 100
     assert np.abs(got.spectrogram_intensity - intensity)[band].max() <= 0.15
-
-
-@pytest.mark.parametrize("impl", UNPORTED_IMPLS)
-def test_unported_impls_raise(cfg, impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_frame_chain(cfg, "cpu", impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RadarPipeline(cfg, device="cpu", impl=impl)
 
 
 def test_unknown_impl_raises_as_in_jax(cfg):

@@ -474,15 +474,16 @@ def test_kernel_build_failure_names_the_source(monkeypatch, tmp_path):
 
 
 def test_new_wrappers_raise_without_kernel_library(monkeypatch, tmp_path):
-    """K5a, K5b, the bin-blocked recompute pair, K6 and K7 on a non-CPU
-    tensor: the loader raises without nvcc, and the plain versions are
-    never called."""
+    """K1c, K5a, K5b, the bin-blocked recompute pair, K6 and K7 on a
+    non-CPU tensor: the loader raises without nvcc, and the plain versions
+    are never called."""
     monkeypatch.setattr(_lib, "_lib", None)
     monkeypatch.setattr(_lib, "find_nvcc", lambda: None)
     monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_lib, "library_path",
                         lambda: tmp_path / "libmissing.so")
     monkeypatch.setattr(ftc, "fast_time_ref", _fail_if_called)
+    monkeypatch.setattr(ftc, "fast_time_profile_bf16_ref", _fail_if_called)
     monkeypatch.setattr(dtc, "search_peaks_fused_ref", _fail_if_called)
     monkeypatch.setattr(stc, "psd_tmax_ref", _fail_if_called)
     monkeypatch.setattr(stc, "db_rescale_recompute_ref", _fail_if_called)
@@ -491,6 +492,11 @@ def test_new_wrappers_raise_without_kernel_library(monkeypatch, tmp_path):
     with pytest.raises(_lib.KernelBuildError, match="nvcc"):
         ftc.fast_time(torch.empty(32, 128, **meta),
                       torch.empty(128, 512, **meta), torch.empty(512, **meta), 16)
+    with pytest.raises(_lib.KernelBuildError, match="nvcc"):
+        ftc.fast_time_profile_bf16(
+            torch.empty(32, 128, **meta),
+            torch.empty(128, 512, device="meta", dtype=torch.bfloat16),
+            torch.empty(512, **meta), 16)
     cfg = RadarConfig.create(default_device_config())
     with pytest.raises(_lib.KernelBuildError):
         dtc.search_peaks_fused(torch.empty(4, 256, **meta), cfg)
@@ -564,6 +570,42 @@ def test_fast_time_profile_b3_dispatch_on_device_tensors(monkeypatch, f):
         with pytest.raises(ValueError):
             ftc.fast_time_profile_b3(**kw)
     assert len(stub.calls) == 1
+
+
+@pytest.mark.parametrize("f", [12, 9, 0])
+def test_fast_time_profile_bf16_dispatch_on_device_tensors(monkeypatch, f):
+    """K1c on a device tensor: one fast_time_profile_bf16 launch (rows, K)
+    with w_hi alone, a [F, K] float32 profile, never the plain version (F =
+    0: no launch); a float32 weight or a ragged frame raises first."""
+    stub = _stub_library(monkeypatch)
+    monkeypatch.setattr(ftc, "fast_time_profile_bf16_ref", _fail_if_called)
+    monkeypatch.setattr(_lib, "check_operand", _check_dtype_only)
+    before = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    x = torch.empty(f * 16, 128, **meta)
+    w_hi = torch.empty(128, 512, device="meta", dtype=torch.bfloat16)
+    off = torch.empty(512, **meta)
+    prof = ftc.fast_time_profile_bf16(x, w_hi, off, 16)
+    assert prof.shape == (f, 256) and prof.dtype == torch.float32
+    if f:
+        (name, args), = stub.calls
+        assert name == "fast_time_profile_bf16_launch" and args[4:6] == (f * 16, 256)
+        assert args[1] == w_hi.data_ptr()
+    assert _launch_deltas(before) == {
+        k: int(k == "fast_time_profile_bf16" and f > 0) for k in before}
+    for bad in (dict(w_hi=torch.empty(128, 512, **meta)),
+                dict(x=torch.empty(f * 16 + 8, 128, **meta)), dict(pn=8)):
+        kw = dict(x=x, w_hi=w_hi, off=off, pn=16) | bad
+        with pytest.raises(ValueError):
+            ftc.fast_time_profile_bf16(**kw)
+    assert len(stub.calls) == int(f > 0)
+
+
+def _check_dtype_only(name, t, device, dtype):
+    """check_operand without the device and alignment checks, for meta
+    tensors."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}")
 
 
 @pytest.mark.parametrize("targets", [1, 3])
@@ -682,6 +724,26 @@ def test_k1a_kernel_matches_plain(cfg, cuda_device, f):
     w, _, _ = _k1_port(cfg, raw, calib, cuda_device)
     exact = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
     assert _snr_db(got.cpu().numpy(), exact.cpu().numpy()) > 100.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [12, 9, 1000, 0])  # 9: not a whole row tile
+def test_k1c_kernel_matches_plain(cfg, cuda_device, f):
+    """K1c vs its plain version (1e-2 + 1e-5·|ref|, K1a's tolerance) and vs
+    the exact profile (between 40 and 80 dB); F = 0 launches nothing."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(3), f=max(f, 1))
+    w, off, x = _k1_port(cfg, raw[:f], calib, cuda_device)
+    w_hi = ftc.split_bf16x3(w)[0]
+    before = _lib.LAUNCHES["fast_time_profile_bf16"]
+    got = ftc.fast_time_profile_bf16(x, w_hi, off, cfg.pn)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fast_time_profile_bf16"] == before + int(f > 0)
+    assert got.shape == (f, cfg.range_fft_size)
+    want = ftc.fast_time_profile_bf16_ref(x, w_hi, off, cfg.pn)
+    assert bool(((got - want).abs() <= 1e-2 + 1e-5 * want.abs()).all())
+    if f:
+        exact = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+        assert 40.0 < _snr_db(got.cpu().numpy(), exact.cpu().numpy()) < 80.0
 
 
 @pytest.mark.cuda
@@ -934,3 +996,74 @@ def test_pallas_chain_on_card_matches_cpu(cfg, cuda_device):
     for name in ("range_fft", "strongest_chirps"):
         torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
                                    rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_pallas_chain_on_card_is_repeatable(cfg, cuda_device):
+    """impl "pallas" on the card, 20 times on one input, each run after the
+    allocator's free memory was filled with NaN: every output bit-equal to
+    the first run's, and no NaN. A kernel that reads memory it never wrote,
+    or races, fails here (run to run, the inputs are seeded)."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(6), f=64)
+    chain = make_frame_chain(cfg, cuda_device, return_range_fft=True, impl="pallas")
+    args = (torch.as_tensor(raw, device=cuda_device),
+            torch.as_tensor(calib, device=cuda_device))
+    first = None
+    for _ in range(20):
+        poison = torch.full((64 << 20,), float("nan"), device=cuda_device)
+        del poison  # freed to the caching allocator, NaN-filled
+        out = chain(*args)
+        torch.cuda.synchronize()
+        got = {name: getattr(out, name) for name in
+               ("waterfall", "range", "speed", "strongest_chirps", "range_fft",
+                "detected")}
+        got.update(idx=out.detection.idx, valid=out.detection.valid,
+                   magnitude=out.detection.magnitude)
+        assert not got["range_fft"].isnan().any()
+        assert not got["waterfall"].isnan().any()
+        if first is None:
+            first = {k: v.clone() for k, v in got.items()}
+        for name, v in got.items():
+            assert torch.equal(v.isnan(), first[name].isnan()), name
+            assert torch.equal(torch.nan_to_num(v), torch.nan_to_num(first[name])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_profile_bf16", "fused", "xla",
+                                  "fused_bf16"])
+def test_frame_chain_impl_on_card_matches_cpu(cfg, cuda_device, impl):
+    """make_frame_chain(impl) on the card against the CPU plain path, with
+    and without the range FFT: detections and ranges exact, speeds rtol
+    1e-6 / atol 1e-7, the waterfall within 1e-2 + 1e-5·|ref| (K1a's kernel
+    tolerance); the cube and the strongest chirps within rtol 1e-5 / atol
+    1e-5·max|rf| (tests/test_fused_chain.py:73-90). K1c runs on the
+    "pallas_profile_bf16" chain without the cube, and nothing else counted
+    does anywhere."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(7), f=64)
+    for rff in (False, True):
+        before = dict(_lib.LAUNCHES)
+        got = make_frame_chain(cfg, cuda_device, return_range_fft=rff, impl=impl)(
+            torch.as_tensor(raw, device=cuda_device),
+            torch.as_tensor(calib, device=cuda_device))
+        torch.cuda.synchronize()
+        k1c = impl == "pallas_profile_bf16" and not rff
+        assert _launch_deltas(before) == {
+            k: int(k1c and k == "fast_time_profile_bf16") for k in before}
+        want = make_frame_chain(cfg, "cpu", return_range_fft=rff, impl=impl)(
+            torch.as_tensor(raw), torch.as_tensor(calib))
+        assert torch.equal(got.detection.idx.cpu(), want.detection.idx)
+        assert torch.equal(got.detected.cpu(), want.detected)
+        assert got.detected.any() and not got.detected.all()
+        assert np.array_equal(got.range.cpu().numpy(), want.range.numpy(),
+                              equal_nan=True)
+        torch.testing.assert_close(got.speed.cpu(), want.speed, rtol=1e-6,
+                                   atol=1e-7, equal_nan=True)
+        d = (got.waterfall.cpu() - want.waterfall).abs()
+        assert bool((d <= 1e-2 + 1e-5 * want.waterfall.abs()).all())
+        scale = float(want.strongest_chirps.abs().max())
+        names = ("strongest_chirps", "range_fft") if rff else ("strongest_chirps",)
+        for name in names:
+            if name == "range_fft":
+                scale = float(want.range_fft.abs().max())
+            torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                                       rtol=1e-5, atol=1e-5 * scale)

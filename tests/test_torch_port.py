@@ -260,13 +260,18 @@ def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
 
 
 @pytest.mark.parametrize("fn", ["PackedFastTime.create",
+                                "FastTimeOperator.create",
                                 "SlowTimeOperator.create", "blocked_weight"])
 def test_internal_builders_take_device_without_default(fn):
-    from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime
+    from fmcw_radar_processing_tpu_torch.dsp.fast_time import (
+        FastTimeOperator,
+        PackedFastTime,
+    )
     from fmcw_radar_processing_tpu_torch.dsp.slow_time import SlowTimeOperator
     from fmcw_radar_processing_tpu_torch.ops.fast_time_cuda import blocked_weight
 
     obj = {"PackedFastTime.create": PackedFastTime.create,
+           "FastTimeOperator.create": FastTimeOperator.create,
            "SlowTimeOperator.create": SlowTimeOperator.create,
            "blocked_weight": blocked_weight}[fn]
     param = inspect.signature(obj).parameters["device"]
@@ -280,10 +285,15 @@ def test_internal_builders_take_device_without_default(fn):
     ("pallas_profile_high", "cpu", "pallas_profile_high"),
     ("pallas_profile", "cuda", "pallas_profile"),
     ("pallas", "cpu", "pallas"),
+    ("pallas_profile_bf16", "cuda", "pallas_profile_bf16"),
+    ("fused", "cuda", "fused"),
+    ("xla", "cpu", "xla"),
+    ("fused_bf16", "cpu", "fused_bf16"),
 ])
 def test_resolve_impl_auto_by_device(impl, device, want):
     """As the JAX package's resolve_impl by backend: the bf16x3 chain on
-    the accelerator, an exact one elsewhere; explicit impls stay."""
+    the accelerator, an exact one elsewhere; explicit impls stay, each of
+    the JAX package's seven."""
     from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import resolve_impl
 
     assert resolve_impl(impl, device) == want
