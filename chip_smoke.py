@@ -8,21 +8,26 @@ bf16x3 profile on the tensor cores, also held to the exact profile at
 100 dB), K1c (one bf16 pass on the tensor cores, at 45 dB), K1b (the exact
 profile), K6 (the range FFT stored too) and K7 (the
 fused peak search, T = 1 and 3) at the shapes of the production recording
-path (65,536 frames of 16 chirps × 64 samples), K2-K3 there at STFT nfft
-256, K3 and K5b at nfft 512 (K3's 64-column tiles), K4a/K4b at the
+path (65,536 frames of 16 chirps × 64 samples), K2a (the bf16x3 PSD on the
+tensor cores, also held to the exact PSD at 100 dB and through K3 on the
+display band), K2b (the exact PSD, K4a's kernel) and K3 there at STFT nfft
+256, the bf16 PSD store's rounding flag of K2a, K2b and K4a, K3 and K5b at
+nfft 512 (K3's 64-column tiles), K4a/K4b at the
 fidelity profile's shape (1,024 frames, nfft 16,384)
 and at 65,536 columns of nfft 65,536, where offsets pass 2^31. Then it
 drives the main paths, each with the launch counters reset just before
 and read just after: ``RadarPipeline.process_recording`` under the
 production profile on a 65,536-frame synthetic recording with the default
-impl (K1a, K2, K3) and with impl "pallas" (K6, K7, K2, K3), the recompute
+impl (K1a, K2a, K3), with impl "pallas" (K6, K7, K2a, K3), with the exact
+chain (impl "pallas_profile", stft_psd_precision "highest": K1b, K2b, K3)
+and with stft_psd_store "bfloat16" (K1a, K2a rounding, K3), the recompute
 export ``spectrogram(recompute=True)`` on that run's packed signal (K5a,
-K5b, bit-equal to K2/K3) and on the same signal at nfft 1,000 (nb_pad 504:
+K5b, bit-equal to K2b/K3) and on the same signal at nfft 1,000 (nb_pad 504:
 the bin-blocked recompute pair psd_tmax_tiled/db_rescale_recompute_tiled,
 bit-equal to K4a/K4b), the fidelity profile on a 1,024-frame recording
-(K1a, K4a, K4b) and that recording with impl "pallas_profile" (K1b),
-checking the detections against the injected targets. The production
-recording also runs with impl "pallas_profile_bf16" (K1c, K2, K3), held
+(K1a, K4a, K4b), checking the detections against the injected targets.
+The production recording also runs with impl "pallas_profile_bf16" (K1c,
+K2a, K3), held
 to the exact impl "pallas_profile"; with the plain formulations "fused",
 "xla" and "fused_bf16" (first 256 frames against the CPU plain path); and
 with ``stft_impl="xla"`` (the plain export: a float32 dB map, the
@@ -136,6 +141,12 @@ def psd_ops(columns: int, nb_pad: int) -> float:
     """float32 operations of the PSD of ``columns`` valid windows: two
     20-tap dot products per bin, then the square-add."""
     return float(columns) * nb_pad * (2 * 2 * 20 + 3)
+
+
+def b3_ops(columns: int, nb_pad: int) -> float:
+    """bf16 operations of K2a's products over ``columns`` valid windows: three
+    passes of the [2·nb_pad, 20] operator times a 20-sample window."""
+    return 3.0 * 2 * (2 * nb_pad) * 20 * columns
 
 
 def db_ops(t_pad: int, nb_pad: int, num_bins: int = 1024) -> float:
@@ -997,7 +1008,9 @@ def main() -> int:
     del prof6, got, want
     torch.cuda.empty_cache()
 
-    # K2 + K3 on a packed-signal-shaped input: L = F·PN, about 90% valid.
+    # K2a, K2b + K3 on a packed-signal-shaped input: L = F·PN, about 90%
+    # valid. The production export is K2a (bf16x3 on the tensor cores) and
+    # K3; the exact one K2b (K4a's kernel) and K3.
     op = StftOperator.create(window_length=20, beta=3.0, nfft=256,
                              fs=1.0 / cfg.derived.prt)
     length = FRAMES * cfg.pn
@@ -1007,25 +1020,84 @@ def main() -> int:
                             + 4.0 * np.sin(np.arange(count) * 0.3)).astype(np.float32)
     sig = torch.as_tensor(sig_np, device=dev)
     nb = op.num_bins
+    nv = count - 19
     t_pad = -(-(length - 19) // stc.PSD_TILE) * stc.PSD_TILE
-    k2_err = 0.0
-    k3_err = 0.0
-    for db_dtype, int_dtype in ((torch.float32, torch.float32),
-                                (torch.bfloat16, torch.bfloat16)):
-        align = 16 if db_dtype == torch.bfloat16 else 8
+    f32, bf16 = torch.float32, torch.bfloat16
+    k2a_err = k2b_err = k3_err = 0.0
+    k2a_snr = k2a_band = None
+    for db_dtype, int_dtype in ((f32, f32), (bf16, bf16)):
+        align = 16 if db_dtype == bf16 else 8
         nb_pad = -(-nb // align) * align
         a2 = torch.as_tensor(stc._folded_operator(op, align), device=dev)
-        p, tmax = stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad)
-        p_ref, tmax_ref = stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad)
+        # K2a against its plain version (the same split, summed in another
+        # order), and against the exact plain PSD: SNR, and the intensity
+        # of both through K3 (float32 stores) on clim [-40, 0].
+        p, tmax = stc.psd_phase1_b3(sig, nv, a2, nb_pad, t_pad)
+        p_ref, tmax_ref = stc.psd_phase1_b3_ref(sig, nv, a2, nb_pad, t_pad)
+        gmax_ref = float(tmax_ref.max())
         perr = (p - p_ref).abs()
-        k2_ok = bool((perr <= 1e-10 + 1e-4 * p_ref.abs()).all()) and bool(
+        ok = bool((perr <= 1e-6 * gmax_ref + 1e-4 * p_ref.abs()).all()) and bool(
             ((tmax - tmax_ref).abs() <= 1e-5 * tmax_ref.abs()).all())
-        k2_err = max(k2_err, float(perr.max()))
-        print(f"[parity] K2 psd_phase1 L={length} nb_pad={nb_pad}: p max_abs_err "
-              f"{float(perr.max()):.6g} (tol 1e-10 + 1e-4·|ref|; gmax "
-              f"{float(tmax_ref.max()):.6g}) {'ok' if k2_ok else 'FAIL'}")
-        check(k2_ok, "K2 parity")
+        err = float(perr.max())
+        k2a_err = max(k2a_err, err)
         del perr, p_ref
+        p_x, tmax_x = stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad)
+        snr = snr_db(p, p_x)
+        out_a = stc.db_rescale(p, tmax.amax(), nb, 1024, f32, f32)[1]
+        out_x = stc.db_rescale(p_x, tmax_x.amax(), nb, 1024, f32, f32)[1]
+        band = (out_x >= -40.0) & (out_x <= 0.0)
+        band_err = float((out_a - out_x).abs()[band].max())
+        del out_a, out_x, band
+        ok &= snr >= 100.0 and band_err <= 1e-3
+        k2a_snr = snr if k2a_snr is None else min(k2a_snr, snr)
+        k2a_band = band_err if k2a_band is None else max(k2a_band, band_err)
+        print(f"[parity] K2a psd_phase1_b3 L={length} nb_pad={nb_pad}: p "
+              f"max_abs_err {err:.6g} vs its plain version (tol 1e-6·gmax + "
+              f"1e-4·|ref|; gmax {gmax_ref:.6g}); {snr:.2f} dB SNR vs the exact "
+              f"plain PSD (tol 100 dB); intensity {band_err:.4g} dB from the "
+              f"exact export's on clim [-40, 0] (tol 1e-3) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "K2a parity")
+        # K2b (K4a's kernel) against the exact plain version.
+        p_b, tmax_b = stc.psd_phase1(sig, nv, a2, nb_pad, t_pad)
+        perr = (p_b - p_x).abs()
+        ok = bool((perr <= 1e-10 + 1e-4 * p_x.abs()).all()) and bool(
+            ((tmax_b - tmax_x).abs() <= 1e-5 * tmax_x.abs()).all())
+        err = float(perr.max())
+        k2b_err = max(k2b_err, err)
+        print(f"[parity] K2b psd_phase1 L={length} nb_pad={nb_pad}: p max_abs_err "
+              f"{err:.6g} (tol 1e-10 + 1e-4·|ref|) {'ok' if ok else 'FAIL'}")
+        check(ok, "K2b parity")
+        del p_b, tmax_b, perr, p_x
+        if db_dtype == bf16:
+            # The bf16 PSD store's flag of K2a, K2b and K4a (nfft 1,000,
+            # nb_pad 512, on the last 16,384 frames' samples): p and the
+            # maxima bit-equal to the bf16 rounding of the kernel's own
+            # unrounded run.
+            start = length - 16_384 * cfg.pn
+            w_op = StftOperator.create(window_length=20, beta=3.0, nfft=1_000,
+                                       fs=1.0 / cfg.derived.prt)
+            w_a2 = torch.as_tensor(stc._folded_operator(w_op, 16), device=dev)
+            w_sig = sig[start:].contiguous()
+            w_t_pad = -(-(w_sig.shape[0] - 19) // stc.PSD_TILE) * stc.PSD_TILE
+            same = {}
+            for name, fn, args in (
+                    ("K2a", stc.psd_phase1_b3, (sig, nv, a2, nb_pad, t_pad)),
+                    ("K2b", stc.psd_phase1, (sig, nv, a2, nb_pad, t_pad)),
+                    ("K4a", stc.psd_phase1_tiled,
+                     (w_sig, nv - start, w_a2, 512, w_t_pad))):
+                p32 = fn(*args)[0]
+                p_r, tmax_r = fn(*args, round_bf16=True)
+                pq = p32.to(bf16).float()
+                want_max = pq.reshape(pq.shape[0], -1, stc.PSD_TILE).amax(dim=(0, 2))
+                same[name] = bool(torch.equal(p_r, pq)) and bool(torch.equal(
+                    stc._tile_max(tmax_r, args[4]), want_max))
+                del p32, p_r, pq
+            print(f"[parity] bf16 PSD store flag: rounded runs bit-equal to the "
+                  f"bf16 rounding of the unrounded ones {same} "
+                  f"{'ok' if all(same.values()) else 'FAIL'}")
+            check(all(same.values()), "bf16 PSD store flag")
+            del w_sig, w_a2
         gmax = tmax.amax()
         db, out = stc.db_rescale(p, gmax, nb, 1024, db_dtype, int_dtype)
         db_ref, out_ref = stc.db_rescale_ref(p, gmax, nb, 1024, db_dtype, int_dtype)
@@ -1035,37 +1107,68 @@ def main() -> int:
         for got, want in ((db, db_ref), (out, out_ref)):
             d = (got.float() - want.float()).abs()
             errs.append(float(d.max()))
-            if db_dtype == torch.float32:
+            if db_dtype == f32:
                 ok &= bool((d <= 2e-3).all())
             else:
                 ok &= bool((d <= bf16_ulp(want.float())).all())
             del d
-        tol = "2e-3 dB" if db_dtype == torch.float32 else "one bf16 ulp"
+        tol = "2e-3 dB" if db_dtype == f32 else "one bf16 ulp"
         print(f"[parity] K3 db_rescale stores {str(db_dtype)[6:]}: db max_abs_err "
               f"{errs[0]:.6g}, intensity max_abs_err {errs[1]:.6g} (tol {tol}); "
               f"floor mask equal {floor_ok} {'ok' if ok else 'FAIL'}")
         check(ok, f"K3 parity ({db_dtype})")
-        if db_dtype == torch.float32:
+        if db_dtype == f32:
             k3_err = max(errs)
         del db, out, db_ref, out_ref
-    # Time the production variant (bf16 stores, nb_pad 144).
-    ms2, plain_ms2, second2 = time_pair(
-        lambda: stc.psd_phase1(sig, count - 19, a2, nb_pad, t_pad),
-        lambda: stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad))
+    # Time the production variant (bf16 stores, nb_pad 144): K2a, K2b, K3,
+    # each in turns with its plain version; and, as a yardstick the port
+    # never calls, one bf16 torch.matmul of the operator [2·nb_pad, 32]
+    # (taps zero-padded) and the frames [32, t_pad] (the Hankel matrix of
+    # the signal, built beforehand), with its bf16 [2·nb_pad, t_pad] output.
+    ms2a, plain_ms2a, second2a = time_pair(
+        lambda: stc.psd_phase1_b3(sig, nv, a2, nb_pad, t_pad),
+        lambda: stc.psd_phase1_b3_ref(sig, nv, a2, nb_pad, t_pad))
+    ms2b, plain_ms2b, second2b = time_pair(
+        lambda: stc.psd_phase1(sig, nv, a2, nb_pad, t_pad),
+        lambda: stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad))
+    a_bf = torch.nn.functional.pad(a2, (0, 12)).to(bf16)
+    f_bf = (torch.nn.functional.pad(sig, (0, t_pad + 31 - length))
+            .unfold(0, 32, 1).T.contiguous().to(bf16))
+    yard2 = time_turns({"mm": lambda: torch.matmul(a_bf, f_bf)})["mm"]
+    del a_bf, f_bf
+    # The card's write rate for the PSD's bytes: a fill of a preallocated
+    # [nb_pad, t_pad] float32 map (nothing read).
+    fill_buf = torch.empty((nb_pad, t_pad), device=dev)
+    fill2 = time_turns({"fill": lambda: fill_buf.fill_(1.0)})["fill"]
+    del fill_buf
     ms3, plain_ms3, second3 = time_pair(
-        lambda: stc.db_rescale(p, gmax, nb, 1024, torch.bfloat16, torch.bfloat16),
-        lambda: stc.db_rescale_ref(p, gmax, nb, 1024, torch.bfloat16,
-                                   torch.bfloat16))
-    print(f"[time] K2 kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms; "
-          f"K3 kernel {ms3:.4f} ms (second in its turn {second3:.4f}), plain "
-          f"{plain_ms3:.4f} ms (median of {REPS})")
-    rows.append(dict(name="psd_phase1", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+        lambda: stc.db_rescale(p, gmax, nb, 1024, bf16, bf16),
+        lambda: stc.db_rescale_ref(p, gmax, nb, 1024, bf16, bf16))
+    print(f"[time] K2a kernel {ms2a:.4f} ms (second in its turn {second2a:.4f}), "
+          f"plain {plain_ms2a:.4f} ms; K2b kernel {ms2b:.4f} ms (second in its "
+          f"turn {second2b:.4f}), plain {plain_ms2b:.4f} ms; K3 kernel "
+          f"{ms3:.4f} ms (second in its turn {second3:.4f}), plain "
+          f"{plain_ms3:.4f} ms (nb_pad {nb_pad}, median of {REPS}); yardstick, "
+          f"not used by the port: one bf16 torch.matmul [{2 * nb_pad},32]@"
+          f"[32,{t_pad}] alone {yard2:.4f} ms; a fill of the [{nb_pad}, "
+          f"{t_pad}] float32 map {fill2:.4f} ms")
+    psd_bytes = length * 4 + a2.numel() * 4 + nb_pad * t_pad * 4 + t_pad // stc.PSD_TILE * 4
+    rows.append(dict(name="psd_phase1_b3", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_psd_b3.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:134",
-                     max_abs_err=k2_err, ms=ms2, plain_ms=plain_ms2, ms_second=second2,
-                     bound=bound(length * 4 + a2.numel() * 4 + nb_pad * t_pad * 4
-                                 + t_pad // stc.PSD_TILE * 4,
-                                 psd_ops(count - 19, nb_pad), "f32")))
+                     max_abs_err=k2a_err, ms=ms2a, plain_ms=plain_ms2a,
+                     ms_second=second2a, snr_db_vs_exact=k2a_snr,
+                     bound=bound(psd_bytes, b3_ops(nv, nb_pad), "bf16"),
+                     yardstick_ms=yard2, fill_ms=fill2,
+                     library_note=f"{NO_LIBRARY} (yardstick_ms: one bf16 "
+                                  "torch.matmul of the operator and the frames "
+                                  "alone; fill_ms: a fill of the PSD's bytes)"))
+    rows.append(dict(name="psd_phase1", route="cuda",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
+                     replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:106",
+                     max_abs_err=k2b_err, ms=ms2b, plain_ms=plain_ms2b,
+                     ms_second=second2b,
+                     bound=bound(psd_bytes, psd_ops(nv, nb_pad), "f32")))
     rows.append(dict(name="db_rescale", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:282",
@@ -1237,9 +1340,11 @@ def main() -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(timer.pretty())
     print(f"[main] launches {launches}")
-    for name in ("fast_time_profile_b3", "psd_phase1", "db_rescale"):
-        check(launches[name] > 0, f"{name} launched on the main path")
-    for name in ("fast_time_profile", "psd_phase1_tiled", "db_rescale_tiled"):
+    check(all(launches[k] == 1 for k in ("fast_time_profile_b3", "psd_phase1_b3",
+                                         "db_rescale")),
+          "K1a, K2a and K3 launched once each on the main path")
+    for name in ("fast_time_profile", "psd_phase1", "psd_phase1_tiled",
+                 "db_rescale_tiled"):
         check(launches[name] == 0, f"{name} not launched on the main path")
     check(np.array_equal(out.detected, present), "detected frames = target frames")
     det = out.detected
@@ -1270,11 +1375,14 @@ def main() -> int:
     main_intensity = inten
     del out, psd
 
-    # 5a'. The exact chain, impl "pallas_profile" (K1b), on the same
-    # recording, counted: detections, ranges and speeds equal the main
-    # path's (bf16x3) exactly, and the main path's waterfall is within
-    # 100 dB of this exact one.
-    xpipe = RadarPipeline(cfg, device=dev, impl="pallas_profile")
+    # 5a'. The exact chain, impl "pallas_profile" (K1b) with the exact
+    # export (stft_psd_precision "highest": K2b), on the same recording,
+    # counted: detections, ranges and speeds equal the main path's (bf16x3)
+    # exactly, and the main path's waterfall is within 100 dB of this exact
+    # one.
+    xcfg = RadarConfig.create(default_device_config(),
+                              AlgorithmConfig.production(stft_psd_precision="highest"))
+    xpipe = RadarPipeline(xcfg, device=dev, impl="pallas_profile")
     xpipe.process_recording(s_raw, s_cal)  # warm
     torch.cuda.synchronize()
     _lib.reset_launches()
@@ -1285,9 +1393,10 @@ def main() -> int:
     x_launches = dict(_lib.LAUNCHES)
     print(f"[exact] process_recording impl='pallas_profile' {FRAMES} frames: "
           f"{seconds:.4f} s; launches {x_launches}")
-    check(x_launches["fast_time_profile"] > 0
-          and x_launches["fast_time_profile_b3"] == 0,
-          "impl='pallas_profile' runs K1b, not K1a")
+    check(x_launches == {k: int(k in ("fast_time_profile", "psd_phase1",
+                                      "db_rescale")) for k in x_launches},
+          "impl='pallas_profile', psd precision 'highest': K1b, K2b, K3 once "
+          "each, no K1a or K2a")
     for name, a, b in zip(("detected", "ranges", "speeds"), main_meas,
                           (xout.detected, xout.target_range, xout.target_speed)):
         check(np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
@@ -1316,15 +1425,55 @@ def main() -> int:
           f"{seconds:.4f} s = {FRAMES / seconds:,.0f} frames/s end to end")
     print(timer.pretty())
     print(f"[bf16] launches {b_launches}")
-    check(all(b_launches[k] == 1 for k in ("fast_time_profile_bf16", "psd_phase1",
-                                           "db_rescale"))
-          and all(b_launches[k] == 0 for k in ("fast_time_profile_b3",
-                                               "fast_time_profile", "fast_time")),
-          "impl='pallas_profile_bf16': K1c, K2, K3 once each; K1a, K1b, K6 never")
+    check(b_launches == {k: int(k in ("fast_time_profile_bf16", "psd_phase1_b3",
+                                      "db_rescale")) for k in b_launches},
+          "impl='pallas_profile_bf16': K1c, K2a, K3 once each; nothing else")
     held_to_exact("impl='pallas_profile_bf16'", bout, xout, 0.001)
     b_snr = snr_db(bout.waterfall, xout.waterfall)
     print(f"[bf16] waterfall {b_snr:.2f} dB SNR against the exact chain's")
     del bout, bpipe
+
+    # 5a''''. stft_psd_store="bfloat16" (the JAX package's bf16 PSD store)
+    # on the production recording: K2a with its rounding flag, then K3,
+    # counted and timed; its first 256 frames on the card against the CPU
+    # plain path, one bf16 ulp above -120 dB as [small].
+    qcfg = RadarConfig.create(default_device_config(),
+                              AlgorithmConfig.production(stft_psd_store="bfloat16"))
+    qpipe = RadarPipeline(qcfg, device=dev)
+    got = qpipe.process_recording(s_raw, s_cal)
+    want = RadarPipeline(qcfg, device="cpu", impl="pallas_profile_high"
+                         ).process_recording(s_raw, s_cal)
+    check(np.array_equal(got.detected, want.detected), "bf16 PSD small: detected")
+    for name in ("spectrogram_intensity", "spectrogram_psd_db"):
+        a = torch.as_tensor(getattr(got, name))
+        b = torch.as_tensor(getattr(want, name))
+        check(a.shape == b.shape, f"bf16 PSD small: {name} shape")
+        tol = torch.maximum(bf16_ulp(torch.maximum(a.abs(), b.abs())),
+                            torch.tensor(1e-3))
+        check(bool(((a - b).abs() <= tol)[b > -120].all()),
+              f"bf16 PSD small: {name} within one bf16 ulp above -120 dB")
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    qout = qpipe.process_recording(raw, calib, timer=timer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    q_launches = dict(_lib.LAUNCHES)
+    print(f"[bf16 psd] 256 frames on cuda match the CPU plain path; "
+          f"process_recording stft_psd_store='bfloat16' {FRAMES} frames: "
+          f"{seconds:.4f} s = {FRAMES / seconds:,.0f} frames/s end to end; "
+          f"launches {q_launches}")
+    print(timer.pretty())
+    check(q_launches == {k: int(k in ("fast_time_profile_b3", "psd_phase1_b3",
+                                      "db_rescale")) for k in q_launches},
+          "stft_psd_store='bfloat16': K1a, K2a, K3 once each")
+    check(np.array_equal(qout.detected, present), "bf16 PSD: detected frames")
+    check(qout.spectrogram_intensity.shape == (1024, n_valid)
+          and bool(np.isfinite(qout.spectrogram_intensity).all())
+          and float(qout.spectrogram_psd_db.max()) == 0.0,
+          "bf16 PSD: intensity finite, dB map normalized to 0 dB")
+    del qout, qpipe
 
     # 5b. The materializing chain, impl "pallas" (K6 + K7). First 256 frames
     # through make_frame_chain with the range FFT on the card against the
@@ -1370,8 +1519,9 @@ def main() -> int:
           "chain alone (its 2 GiB range-FFT cube included)")
     print(timer.pretty())
     print(f"[pallas] launches {p_launches}")
-    for name in ("fast_time", "search_peaks_fused", "psd_phase1", "db_rescale"):
+    for name in ("fast_time", "search_peaks_fused", "psd_phase1_b3", "db_rescale"):
         check(p_launches[name] > 0, f"{name} launched on the impl='pallas' path")
+    check(p_launches["psd_phase1"] == 0, "K2b not launched on impl='pallas'")
     check(p_launches["fast_time_profile"] == 0, "K1 not launched on impl='pallas'")
     det = pout.detected
     check(np.array_equal(det, present), "pallas: detected frames = target frames")
@@ -1417,9 +1567,9 @@ def main() -> int:
               f"process_recording {FRAMES} frames: {seconds:.4f} s = "
               f"{FRAMES / seconds:,.0f} frames/s end to end; launches {i_launches}")
         print(timer.pretty())
-        check(i_launches == {k: int(k in ("psd_phase1", "db_rescale"))
+        check(i_launches == {k: int(k in ("psd_phase1_b3", "db_rescale"))
                              for k in i_launches},
-              f"impl={impl!r}: the export's K2 and K3 once, no frame-chain kernel")
+              f"impl={impl!r}: the export's K2a and K3 once, no frame-chain kernel")
         held_to_exact(f"impl={impl!r}", iout, xout, 0.001 if impl == "fused_bf16"
                       else 0.0)
         del iout, ipipe
@@ -1495,8 +1645,8 @@ def main() -> int:
     _, db_r, int_r = stc.spectrogram(sig, count, op, recompute=True)
     torch.cuda.synchronize()
     k5_launches = dict(_lib.LAUNCHES)
-    check(k5_launches["psd_tmax"] == 1 and k5_launches["db_rescale_recompute"] == 1
-          and k5_launches["psd_phase1"] == 0 and k5_launches["db_rescale"] == 0,
+    check(k5_launches == {k: int(k in ("psd_tmax", "db_rescale_recompute"))
+                          for k in k5_launches},
           f"spectrogram(recompute=True) runs K5a and K5b only: {k5_launches}")
     _, db_m, int_m = stc.spectrogram(sig, count, op)
     check(torch.equal(db_r, db_m) and torch.equal(int_r, int_m),
@@ -1518,10 +1668,10 @@ def main() -> int:
         p, tmax = stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad)
         return stc.db_rescale_ref(p, tmax.amax(), nb, 1024, f32, bf16)
 
-    export = time_turns({"K2+K3": materializing, "K5a+K5b": recompute,
+    export = time_turns({"K2b+K3": materializing, "K5a+K5b": recompute,
                          "plain": plain})
-    print(f"[time] export nfft 256, float32 dB, bf16 intensity: K2+K3 "
-          f"{export['K2+K3']:.4f} ms, K5a+K5b {export['K5a+K5b']:.4f} ms, plain "
+    print(f"[time] export nfft 256, float32 dB, bf16 intensity: K2b+K3 "
+          f"{export['K2b+K3']:.4f} ms, K5a+K5b {export['K5a+K5b']:.4f} ms, plain "
           f"{export['plain']:.4f} ms (in turns, median of {REPS})")
     ms5a, plain_ms5a, second5a = time_pair(
         lambda: stc.psd_tmax(sig, nv, a2, nb_pad, t_pad),
@@ -1531,10 +1681,11 @@ def main() -> int:
         lambda: stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024, t_pad, bf16),
         lambda: stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb, 1024, t_pad,
                                              bf16))
-    print(f"[time] K5a kernel {ms5a:.4f} ms, plain {plain_ms5a:.4f} ms; K5b "
-          f"kernel {ms5b:.4f} ms, plain {plain_ms5b:.4f} ms (median of {REPS})")
+    print(f"[time] K5a kernel {ms5a:.4f} ms (second in its turn {second5a:.4f}), "
+          f"plain {plain_ms5a:.4f} ms; K5b kernel {ms5b:.4f} ms, plain "
+          f"{plain_ms5b:.4f} ms (median of {REPS})")
     rows.append(dict(name="psd_tmax", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
+                     source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
                      max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a, ms_second=second5a,
                      bound=bound(sig.numel() * 4 + a2.numel() * 4
@@ -1557,7 +1708,7 @@ def main() -> int:
                                fs=1.0 / cfg.derived.prt)
     r_nb = r_op.num_bins
     r_nb_pad = -(-r_nb // 8) * 8
-    check(stc.UNTILED_MAX_BINS < r_nb_pad <= stc.RECOMPUTE_MAX_BINS,
+    check(stc.UNTILED_MAX_BINS < r_nb_pad <= stc.JAX_UNTILED_MAX_BINS,
           f"nb_pad {r_nb_pad} is the bin-blocked recompute's domain")
     r_a2 = torch.as_tensor(stc._folded_operator(r_op, 8), device=dev)
     torch.cuda.synchronize()
@@ -1676,8 +1827,8 @@ def main() -> int:
     print(f"[fidelity] launches {f_launches}")
     for name in ("fast_time_profile_b3", "psd_phase1_tiled", "db_rescale_tiled"):
         check(f_launches[name] > 0, f"{name} launched on the fidelity path")
-    for name in ("fast_time_profile", "psd_phase1", "db_rescale", "psd_tmax_tiled",
-                 "db_rescale_recompute_tiled"):
+    for name in ("fast_time_profile", "psd_phase1", "psd_phase1_b3", "db_rescale",
+                 "psd_tmax_tiled", "db_rescale_recompute_tiled"):
         check(f_launches[name] == 0, f"{name} not launched on the fidelity path")
     det = fout.detected
     check(np.array_equal(det, fpresent), "fidelity: detected frames = target frames")
@@ -1744,16 +1895,19 @@ def main() -> int:
 
     # Launches of each kernel on the main path that drives it (the row's
     # "launches", that path named in "main_path"): the production
-    # run for K1a, K2, K3, the impl "pallas_profile" run for K1b, the
+    # run for K1a, K2a, K3, the exact chain (impl "pallas_profile",
+    # stft_psd_precision "highest") for K1b and K2b, the
     # impl "pallas_profile_bf16" run for K1c, the
     # fidelity run for K4a/K4b, the impl "pallas" run for K6/K7,
     # spectrogram(recompute=True) for K5a/K5b and, at nfft 1,000, for the
     # bin-blocked recompute pair.
     paths = {"fast_time_profile_b3": ("production", launches),
+             "psd_phase1_b3": ("production", launches),
              "fast_time_profile_bf16": ("production impl='pallas_profile_bf16'",
                                         b_launches),
              "fast_time_profile": ("production impl='pallas_profile'", x_launches),
-             "psd_phase1": ("production", launches),
+             "psd_phase1": ("production impl='pallas_profile', "
+                            "stft_psd_precision='highest'", x_launches),
              "db_rescale": ("production", launches),
              "psd_phase1_tiled": ("fidelity", f_launches),
              "db_rescale_tiled": ("fidelity", f_launches),
@@ -1775,7 +1929,9 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             ms_second_in_turn=r["ms_second"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
-            library_note=NO_LIBRARY))
+            library_note=r.get("library_note", NO_LIBRARY),
+            **{k: r[k] for k in ("yardstick_ms", "fill_ms", "snr_db_vs_exact")
+               if k in r}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
-// The numeric contract shared by the export kernels K2, K3, K5a, K5b
-// (stft_export.cu) and K4a, K4b and their recompute pair
-// (stft_export_tiled.cu): the PSD values of windows, the dB of one PSD
-// value, and the emission of a float32 result in the store dtype. One
-// definition, so every path rounds alike: the recompute pairs reproduce the
-// materializing pairs' outputs bit for bit, and K4 reproduces K2/K3's.
+// The numeric contract shared by the exact export kernels K3 and K5b
+// (stft_export.cu) and K4a (which K2b and K5a launch), K4b and their
+// recompute pair (stft_export_tiled.cu): the PSD values of windows, the dB
+// of one PSD value, and the emission of a float32 result in the store
+// dtype. One definition, so every path rounds alike: the recompute pairs
+// reproduce the materializing pairs' outputs bit for bit, and K4b
+// reproduces K3's.
 #pragma once
 
 #include <cuda_bf16.h>

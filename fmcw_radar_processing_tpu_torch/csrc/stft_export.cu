@@ -1,21 +1,9 @@
-// K2, K3, K5a and K5b — the fused spectrogram export (STFT → PSD → dB →
-// 1024 log-frequency bins) of a packed |slow-time| signal, hop 1, for
-// nb_pad ≤ 272 (the untiled pair; stft_export_tiled.cu takes larger nb_pad).
-//
-// K2 psd_phase1 replaces ops/stft_pallas.py::_psd_kernel_b3 (production)
-// and ::_psd_kernel (fidelity) of the JAX package:
-//
-//     s[b, t] = Σ_w A2[b, w] · sig[t + w]          (A2 = folded DFT operator,
-//     p[b, t] = s[b, t]² + s[nb_pad + b, t]²         √(scale·dbl) in its rows)
-//     p = 0 at columns t ≥ nv;   tmax[block] = max of the stored p
-//
-// It reads the sliding windows straight from the 1-D signal (the JAX
-// package builds an im2col frame matrix only because Mosaic could not shift
-// lanes in-kernel). Bound on an H100: the [nb_pad, t_pad] PSD write
-// (604 MB at 65,536 frames, nfft 256) and about as many nanoseconds of
-// float32 FMAs; the operator (≤ 82 KB) sits in shared memory and every
-// thread keeps its 20 samples in registers, so each operator row costs five
-// broadcast 16-byte loads per 40 FMAs. Writes are coalesced along t.
+// K3 and K5b — phase 2 of the fused spectrogram export (PSD → dB → 1024
+// log-frequency bins) of a packed |slow-time| signal, hop 1, for
+// nb_pad ≤ 272 (the untiled kernels; stft_export_tiled.cu takes larger
+// nb_pad). Phase 1 is K2a (stft_psd_b3.cu, bf16x3 on the tensor cores) or,
+// exact, K4a's kernel (stft_export_tiled.cu), which K2b and K5a launch:
+// one kernel for the exact PSD at every nb_pad.
 //
 // K3 db_rescale replaces ops/stft_pallas.py::_db_rescale_kernel:
 //
@@ -50,19 +38,20 @@
 // int8 emission uses rintf (half to even, like jnp.round). Built without
 // --use_fast_math: flush-to-zero would change the 1e-45 floor logic.
 //
-// K5a psd_tmax and K5b db_rescale_recompute replace the recompute pair
-// ops/stft_pallas.py::_tmax_kernel and ::_db_rescale_recompute_kernel: the
-// [nb_pad, t_pad] PSD is never stored. K5a is K2 without the PSD store (one
-// max per 1024-column tile); K5b gives a block 128 columns, stages their
-// 147 signal samples and the whole folded operator in shared memory,
-// recomputes the PSD with K2's psd_value, and then runs K3's dB,
-// interpolation and emission arithmetic on the tile (its own loop, one
-// column per thread). Same operands, same arithmetic
-// (export_common.cuh): db and intensity are bit-equal to K2 → K3's. Bound:
-// K5b trades K3's PSD read (0.57 GB at 65,536 frames, nb_pad 136) for
-// 2·nb_pad·20 FMAs a column (11 GFLOP there, about 0.2 ms of the float32
-// peak); its shared memory (the operator plus a 128-column dB tile, 183 KB
-// at nb_pad 272) allows one block per SM at nb_pad 272, two at 136.
+// K5b db_rescale_recompute replaces ops/stft_pallas.py::
+// _db_rescale_recompute_kernel, the second kernel of the recompute pair
+// (the first, K5a, is K4a's kernel without its store): the [nb_pad, t_pad]
+// PSD is never stored. K5b gives a block 128 columns, stages their 147
+// signal samples and the whole folded operator in shared memory,
+// recomputes the PSD with psd_value (the chain K4a computes every column
+// with), and then runs K3's dB, interpolation and emission arithmetic on
+// the tile (its own loop, one column per thread). Same operands, same
+// arithmetic (export_common.cuh): db and intensity are bit-equal to
+// K2b → K3's. Bound: K5b trades K3's PSD read (0.57 GB at 65,536 frames,
+// nb_pad 136) for 2·nb_pad·20 FMAs a column (11 GFLOP there, about 0.2 ms
+// of the float32 peak); its shared memory (the operator plus a 128-column
+// dB tile, 183 KB at nb_pad 272) allows one block per SM at nb_pad 272,
+// two at 136.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,64 +62,9 @@
 namespace {
 
 constexpr int kWl = kStftTaps;      // STFT window length
-constexpr int kP1Threads = 256;
-constexpr int kP1Cols = 4;          // columns per thread
-constexpr int kP1Tile = kP1Threads * kP1Cols;  // 1024 columns per block
 constexpr int kP2Threads = 256;
 constexpr int kP2Tile = 128;        // columns per K5b block
 constexpr int kP2RowStep = kP2Threads / kP2Tile;
-
-// kStore = true is K2; false is K5a (tmax only, p untouched).
-template <bool kStore>
-__global__ void __launch_bounds__(kP1Threads)
-psd_phase1_kernel(const float* __restrict__ sig, int sig_len,
-                  const float* __restrict__ a2, int nb_pad,
-                  float* __restrict__ p, float* __restrict__ tmax,
-                  int t_pad, int nv) {
-  extern __shared__ float4 smem4[];
-  float* ops = reinterpret_cast<float*>(smem4);  // [2·nb_pad][kWl]
-  float* xs = ops + 2 * nb_pad * kWl;            // [kP1Tile + kWl − 1]
-  __shared__ float warp_max[kP1Threads / 32];
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kP1Tile;
-
-  for (int i = tid; i < 2 * nb_pad * kWl / 4; i += kP1Threads) {
-    smem4[i] = reinterpret_cast<const float4*>(a2)[i];
-  }
-  for (int i = tid; i < kP1Tile + kWl - 1; i += kP1Threads) {
-    const int s = t0 + i;
-    xs[i] = s < sig_len ? sig[s] : 0.f;
-  }
-  __syncthreads();
-
-  float mx = 0.f;
-  for (int c = 0; c < kP1Cols; ++c) {
-    const int lt = c * kP1Threads + tid;
-    const int t = t0 + lt;
-    const bool valid = t < nv;
-    float xv[kWl];
-#pragma unroll
-    for (int w = 0; w < kWl; ++w) xv[w] = xs[lt + w];
-    for (int b = 0; b < nb_pad; ++b) {
-      const float4* ore = reinterpret_cast<const float4*>(&ops[b * kWl]);
-      const float4* oim = reinterpret_cast<const float4*>(&ops[(nb_pad + b) * kWl]);
-      const float pv = valid ? psd_value(xv, ore, oim) : 0.f;
-      if (kStore) p[(size_t)b * t_pad + t] = pv;
-      mx = fmaxf(mx, pv);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
-  if ((tid & 31) == 0) warp_max[tid >> 5] = mx;
-  __syncthreads();
-  if (tid == 0) {
-    float m = warp_max[0];
-    for (int i = 1; i < kP1Threads / 32; ++i) m = fmaxf(m, warp_max[i]);
-    tmax[blockIdx.x] = m;
-  }
-}
 
 // The interpolation and emission of a dB tile dbs [rows][kP2Tile] held in
 // shared memory: out[o, t] = w0[o]·dbs[i0[o]] + w1[o]·dbs[i0[o] + 1] for the
@@ -252,8 +186,8 @@ db_rescale_kernel(const float* __restrict__ p, const float* __restrict__ gmax,
 // whole float4 so the dB tile after them stays 16-byte aligned.
 constexpr int kRcSamples = (kP2Tile + kWl - 1 + 3) / 4 * 4;
 
-// K5b: the PSD of a 128-column tile recomputed from the signal (K2's
-// psd_value on the same operator rows and samples), then K3's dB and
+// K5b: the PSD of a 128-column tile recomputed from the signal (K4a's
+// psd_value chain on the same operator rows and samples), then K3's dB and
 // emission. db is float32 only, as in the JAX recompute kernel.
 template <typename OutT>
 __global__ void __launch_bounds__(kP2Threads)
@@ -378,20 +312,6 @@ int dispatch_out(int out_dtype, const float* p, const float* gmax,
   }
 }
 
-template <bool kStore>
-int launch_psd_phase1(const float* sig, int sig_len, const float* a2,
-                      int nb_pad, float* p, float* tmax, int t_pad, int nv,
-                      cudaStream_t stream) {
-  const int smem = (2 * nb_pad * kWl + kP1Tile + kWl - 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      psd_phase1_kernel<kStore>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  psd_phase1_kernel<kStore><<<t_pad / kP1Tile, kP1Threads, smem, stream>>>(
-      sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv);
-  return (int)cudaGetLastError();
-}
-
 template <typename OutT>
 int launch_recompute(const float* sig, int sig_len, const float* a2,
                      int nb_pad, int nv, const float* gmax, const int* i0,
@@ -412,24 +332,6 @@ int launch_recompute(const float* sig, int sig_len, const float* a2,
 }
 
 }  // namespace
-
-// sig [sig_len] f32; a2 [2·nb_pad, 20] f32; p [nb_pad, t_pad] f32;
-// tmax [t_pad / 1024] f32. t_pad must be a multiple of 1024 and nb_pad of 2.
-extern "C" int psd_phase1_launch(const float* sig, int sig_len,
-                                 const float* a2, int nb_pad, float* p,
-                                 float* tmax, int t_pad, int nv,
-                                 void* stream) {
-  return launch_psd_phase1<true>(sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv,
-                                 (cudaStream_t)stream);
-}
-
-// K5a: psd_phase1_launch's tmax without the PSD store.
-extern "C" int psd_tmax_launch(const float* sig, int sig_len, const float* a2,
-                               int nb_pad, float* tmax, int t_pad, int nv,
-                               void* stream) {
-  return launch_psd_phase1<false>(sig, sig_len, a2, nb_pad, nullptr, tmax,
-                                  t_pad, nv, (cudaStream_t)stream);
-}
 
 // p [nb_pad, t_pad] f32; gmax: one f32 on the device; i0/w0/w1 [num_bins];
 // db [nb_pad, t_pad] (db_dtype 0 = f32, 1 = bf16); out [num_bins, t_pad]
@@ -457,9 +359,9 @@ extern "C" int db_rescale_launch(const float* p, const float* gmax,
   }
 }
 
-// K5b. sig, a2, nv as psd_phase1_launch; gmax, i0/w0/w1, out, out_dtype as
-// db_rescale_launch; db [nb_pad, t_pad] f32. t_pad must be a multiple of
-// 128.
+// K5b. sig, a2, nv as psd_phase1_tiled_launch; gmax, i0/w0/w1, out,
+// out_dtype as db_rescale_launch; db [nb_pad, t_pad] f32. t_pad must be a
+// multiple of 128.
 extern "C" int db_rescale_recompute_launch(
     const float* sig, int sig_len, const float* a2, int nb_pad, int nv,
     const float* gmax, const int* i0, const float* w0, const float* w1,

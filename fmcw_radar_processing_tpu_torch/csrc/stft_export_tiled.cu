@@ -1,6 +1,10 @@
 // K4a, K4b and their recompute pair — the bin-blocked spectrogram export
 // for any nfft: what the fidelity profile (nfft = 2^nextpow2(L)) runs once
-// the untiled kernels K2/K3 no longer fit (nb_pad > 272, nfft > 512).
+// the untiled K3 no longer fits (nb_pad > 272, nfft > 512). K4a's kernel is
+// also the exact phase 1 below that: K2b (psd_phase1) and K5a (psd_tmax)
+// launch it and reduce its maxima to one per 1024 columns (at nb_pad 136
+// and 144 it took 0.29-0.30 ms where K2's own kernel took 0.45, by
+// tools/time_psd_phase1.py on an H100). kRound is the bf16 PSD store.
 //
 // K4a psd_phase1_tiled replaces ops/stft_pallas.py::_psd_kernel_tiled:
 //
@@ -116,7 +120,9 @@ __device__ __forceinline__ void psd_group(
 }
 
 // kStore = true is K4a; false is psd_tmax_tiled (tmax only, p untouched).
-template <bool kStore>
+// kRound: every value rounded to bf16 (round to nearest even) before the
+// max and the store, the bf16 PSD store's values in a float32 array.
+template <bool kStore, bool kRound>
 __global__ void __launch_bounds__(kAThreads, 4)
 psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
                  const float* __restrict__ a2, int nb_pad,
@@ -158,7 +164,10 @@ psd_tiled_kernel(const float* __restrict__ sig, int sig_len,
       psd_group<kACols>(x, &ops4[b * kWl / 4], &ops4[(kKb + b) * kWl / 4], t,
                         nv, pv);
 #pragma unroll
-      for (int c = 0; c < kACols; ++c) mx = fmaxf(mx, pv[c]);
+      for (int c = 0; c < kACols; ++c) {
+        if (kRound) pv[c] = __bfloat162float(__float2bfloat16_rn(pv[c]));
+        mx = fmaxf(mx, pv[c]);
+      }
       if (kStore) {
         __stcs(dst + b * row4, make_float4(pv[0], pv[1], pv[2], pv[3]));
         __stcs(dst + b * row4 + 1, make_float4(pv[4], pv[5], pv[6], pv[7]));
@@ -341,12 +350,12 @@ db_rescale_tiled_kernel(const Phase2Args a) {
   }
 }
 
-template <bool kStore>
+template <bool kStore, bool kRound>
 int launch_psd_tiled(const float* sig, int sig_len, const float* a2,
                      int nb_pad, float* p, float* tmax, int t_pad, int nv,
                      cudaStream_t stream) {
   const dim3 grid(t_pad / kATile, (nb_pad + kKb - 1) / kKb);
-  psd_tiled_kernel<kStore><<<grid, kAThreads, 0, stream>>>(
+  psd_tiled_kernel<kStore, kRound><<<grid, kAThreads, 0, stream>>>(
       sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv);
   return (int)cudaGetLastError();
 }
@@ -384,21 +393,26 @@ int dispatch_phase2_out(int out_dtype, const Phase2Args& a,
 
 // sig [sig_len] f32; a2 [2·nb_pad, 20] f32; p [nb_pad, t_pad] f32;
 // tmax [ceil(nb_pad / 128) · t_pad / 1024] f32, bin block major.
-// t_pad must be a multiple of 1024.
+// t_pad must be a multiple of 1024; round_bf16 != 0 rounds every value to
+// bf16.
 extern "C" int psd_phase1_tiled_launch(const float* sig, int sig_len,
                                        const float* a2, int nb_pad, float* p,
                                        float* tmax, int t_pad, int nv,
-                                       void* stream) {
-  return launch_psd_tiled<true>(sig, sig_len, a2, nb_pad, p, tmax, t_pad, nv,
-                                (cudaStream_t)stream);
+                                       int round_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return round_bf16
+      ? launch_psd_tiled<true, true>(sig, sig_len, a2, nb_pad, p, tmax, t_pad,
+                                     nv, s)
+      : launch_psd_tiled<true, false>(sig, sig_len, a2, nb_pad, p, tmax,
+                                      t_pad, nv, s);
 }
 
 // psd_tmax_tiled: psd_phase1_tiled_launch's tmax without the PSD store.
 extern "C" int psd_tmax_tiled_launch(const float* sig, int sig_len,
                                      const float* a2, int nb_pad, float* tmax,
                                      int t_pad, int nv, void* stream) {
-  return launch_psd_tiled<false>(sig, sig_len, a2, nb_pad, nullptr, tmax,
-                                 t_pad, nv, (cudaStream_t)stream);
+  return launch_psd_tiled<false, false>(sig, sig_len, a2, nb_pad, nullptr,
+                                        tmax, t_pad, nv, (cudaStream_t)stream);
 }
 
 // p [nb_pad, t_pad] f32; gmax: one f32 on the device; i0/w0/w1 [num_bins];

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("fast_time_profile.cu", "fast_time_profile_b3.cu",
-           "stft_export.cu", "stft_export_tiled.cu", "detect.cu")
+           "stft_export.cu", "stft_export_tiled.cu", "stft_psd_b3.cu",
+           "detect.cu")
 HEADERS = ("export_common.cuh",)
 # No --use_fast_math: it flushes subnormals to zero (the 1e-45 floor of the
 # dB map is subnormal) and swaps in approximate logf/sqrtf.
@@ -35,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fast_time_profile_b3": 0, "fast_time_profile": 0,
-            "fast_time_profile_bf16": 0, "psd_phase1": 0, "db_rescale": 0,
+            "fast_time_profile_bf16": 0, "psd_phase1_b3": 0,
+            "psd_phase1": 0, "db_rescale": 0,
             "psd_phase1_tiled": 0, "db_rescale_tiled": 0, "fast_time": 0,
             "search_peaks_fused": 0, "psd_tmax": 0, "db_rescale_recompute": 0,
             "psd_tmax_tiled": 0, "db_rescale_recompute_tiled": 0}
@@ -110,13 +112,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fast_time_profile_b3_launch.restype = i
     lib.fast_time_profile_bf16_launch.argtypes = [p, p, p, p, i, i, p]
     lib.fast_time_profile_bf16_launch.restype = i
-    lib.psd_phase1_launch.argtypes = [p, i, p, i, p, p, i, i, p]
-    lib.psd_phase1_launch.restype = i
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,
                                       f, f, f, f, p]
     lib.db_rescale_launch.restype = i
-    lib.psd_phase1_tiled_launch.argtypes = [p, i, p, i, p, p, i, i, p]
+    lib.psd_phase1_tiled_launch.argtypes = [p, i, p, i, p, p, i, i, i, p]
     lib.psd_phase1_tiled_launch.restype = i
+    lib.psd_phase1_b3_launch.argtypes = [p, i, p, i, p, p, i, i, i, p]
+    lib.psd_phase1_b3_launch.restype = i
     lib.db_rescale_tiled_launch.argtypes = [p, p, p, p, p, p, i, i, p, i, p, i,
                                             f, f, f, f, p]
     lib.db_rescale_tiled_launch.restype = i
@@ -124,8 +126,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fast_time_launch.restype = i
     lib.search_peaks_launch.argtypes = [p, p, f, i, i, i, p, p, p, p]
     lib.search_peaks_launch.restype = i
-    lib.psd_tmax_launch.argtypes = [p, i, p, i, p, i, i, p]
-    lib.psd_tmax_launch.restype = i
     lib.db_rescale_recompute_launch.argtypes = [p, i, p, i, i, p, p, p, p, i,
                                                 i, p, p, i, f, f, f, f, p]
     lib.db_rescale_recompute_launch.restype = i

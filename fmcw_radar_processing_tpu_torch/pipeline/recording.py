@@ -168,11 +168,15 @@ class RadarPipeline:
         n_valid = stft_frame_count(count, wl, op.hop)
         int_dtype = _STORE_DTYPES[a.intensity_dtype]
         db_store = _STORE_DTYPES[a.stft_db_store]
+        psd_store = (torch.bfloat16 if a.stft_psd_store == "bfloat16"
+                     else torch.float32)
+        psd_precision = a.stft_psd_precision
         if -(-op.num_bins // 8) * 8 > 512:
             # The JAX package's rule (its resolves_tiled): past 512 bins its
-            # export is the bin-blocked float32 path, whatever the config
-            # asks. Which kernel pair runs here is spectrogram()'s own gate.
-            db_store = torch.float32
+            # export is the bin-blocked exact float32 path, whatever the
+            # config asks. Which kernels run here is spectrogram()'s own gate.
+            db_store = psd_store = torch.float32
+            psd_precision = "highest"
         freqs = (np.arange(op.num_bins, dtype=np.float32)
                  * np.float32(op.fs / op.nfft))
         with tm.stage("stft", items=count):
@@ -181,7 +185,8 @@ class RadarPipeline:
             if kernels:
                 _, db, intensity = spectrogram(
                     sig, count, op, a.max_freq_bins, intensity_dtype=int_dtype,
-                    db_store_dtype=db_store)
+                    db_store_dtype=db_store, psd_precision=psd_precision,
+                    psd_store_dtype=psd_store)
             else:
                 # The JAX package's XLA branch (stft_impl "xla", and "auto"
                 # at hop ≠ 1): the operator product, the float32 dB map

@@ -239,10 +239,12 @@ def test_k2_k3_plain_match_pallas_f32(l, count):
     np.testing.assert_array_equal(db == DB_FLOOR, db_j == DB_FLOOR)
     mi = int_j > -120
     np.testing.assert_allclose(intensity[mi], int_j[mi], atol=2e-3)
-    # The production phase 1 (bf16x3) in the display band.
+    # The production phase 1 (bf16x3, K2a's plain version) in the display
+    # band (measured 5e-4 dB).
+    int_hp = _port_export(sig, count, psd_precision="high")[2].numpy()
     _, _, int_h = _jax_export(sig, count, psd_precision="high")
     mh = int_h > -40
-    np.testing.assert_allclose(intensity[mh], int_h[mh], atol=4e-3)
+    np.testing.assert_allclose(int_hp[mh], int_h[mh], atol=1e-3)
     # Invalid columns: zero PSD, floored dB.
     ncols = count - 20 + 1
     assert np.all(p[:, ncols:] == 0.0)
@@ -392,8 +394,9 @@ def _stub_library(monkeypatch):
 ])
 def test_spectrogram_dispatch_on_device_tensors(monkeypatch, nfft, db_dtype,
                                                 tiled):
-    """A device tensor goes to K2/K3 up to nb_pad 272 and to K4a/K4b above,
-    never to the plain versions; each launch is counted once."""
+    """A device tensor goes to K2b/K3 up to nb_pad 272 and to K4a/K4b
+    above, never to the plain versions; each launch is counted once under
+    its wrapper's name (K2b launches K4a's kernel)."""
     stub = _stub_library(monkeypatch)
     monkeypatch.setattr(stc, "psd_phase1_ref", _fail_if_called)
     monkeypatch.setattr(stc, "db_rescale_ref", _fail_if_called)
@@ -409,7 +412,7 @@ def test_spectrogram_dispatch_on_device_tensors(monkeypatch, nfft, db_dtype,
     names = [name for name, _ in stub.calls]
     kernels = (["psd_phase1_tiled", "db_rescale_tiled"] if tiled
                else ["psd_phase1", "db_rescale"])
-    assert names == [k + "_launch" for k in kernels]
+    assert names == ["psd_phase1_tiled_launch", kernels[1] + "_launch"]
     align = 16 if db_dtype == torch.bfloat16 else 8
     nb_pad = -(-op.num_bins // align) * align
     assert stub.calls[0][1][3] == nb_pad and stub.calls[0][1][6] == 3072
@@ -637,9 +640,10 @@ def test_search_peaks_fused_dispatch_on_device_tensors(monkeypatch, targets):
 ])
 def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft,
                                                           kernels):
-    """recompute=True on a device tensor: K5a then K5b up to nb_pad 272, the
-    bin-blocked pair above, each counted once, psd None, a float32 dB map;
-    the materializing kernels and the plain versions untouched."""
+    """recompute=True on a device tensor: K5a (K4a's kernel without its
+    store) then K5b up to nb_pad 272, the bin-blocked pair above, each
+    counted once under its wrapper's name, psd None, a float32 dB map; the
+    materializing kernels and the plain versions untouched."""
     stub = _stub_library(monkeypatch)
     for name in ("psd_phase1_ref", "db_rescale_ref", "psd_tmax_ref",
                  "db_rescale_recompute_ref"):
@@ -651,7 +655,8 @@ def test_spectrogram_recompute_dispatch_on_device_tensors(monkeypatch, nfft,
                                        recompute=True)
     assert p is None and db.dtype == torch.float32
     assert db.shape == (op.num_bins, 2981) and intensity.shape == (1024, 2981)
-    assert [n for n, _ in stub.calls] == [k + "_launch" for k in kernels]
+    assert [n for n, _ in stub.calls] == ["psd_tmax_tiled_launch",
+                                          kernels[1] + "_launch"]
     nb_pad = -(-op.num_bins // 8) * 8
     assert stub.calls[0][1][3] == nb_pad and stub.calls[1][1][3] == nb_pad
     assert _launch_deltas(before) == {k: int(k in kernels) for k in before}
@@ -671,7 +676,7 @@ def test_declared_launch_symbols_are_defined_once_in_the_sources():
     declared = Recorder()
     _lib._declare(declared)
     symbols = set(vars(declared))
-    assert {"fast_time_launch", "search_peaks_launch", "psd_tmax_launch",
+    assert {"fast_time_launch", "search_peaks_launch", "psd_phase1_b3_launch",
             "db_rescale_recompute_launch", "psd_tmax_tiled_launch",
             "db_rescale_recompute_tiled_launch"} <= symbols
     defined: dict[str, int] = {}
@@ -778,6 +783,65 @@ def test_k2_k3_kernels_match_plain(cuda_device, int_dtype, nfft, l, count):
         mi = out_ref.float() > -120
         torch.testing.assert_close(out.float()[mi], out_ref.float()[mi], rtol=0,
                                    atol=2e-3 if int_dtype == torch.float32 else 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("nfft,l,count", [
+    (256, 4096, 1000), (256, 70_000, 69_000),
+    (512, 70_000, 40_000),  # nb_pad 264/272
+    (1000, 4096, 3000), (1000, 70_000, 69_000),  # nb_pad 504/512
+])
+def test_k2a_kernel_matches_plain(cuda_device, nfft, l, count, round_bf16):
+    """K2a (bf16x3 on the tensor cores) vs its plain version: |Δp| ≤
+    1e-6·gmax + 1e-4·|p_ref| (the sums run in another order), tmax within
+    1e-5 relative; above 100 dB against the exact form. With the bf16
+    store's flag, p and tmax are bit-equal to the bf16 rounding of the
+    kernel's own float32 PSD."""
+    sig = torch.as_tensor(_signal(l, count), device=cuda_device)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    align = 16 if round_bf16 else 8
+    nb_pad = -(-op.num_bins // align) * align
+    t_pad = -(-(l - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    a2 = torch.as_tensor(stc._folded_operator(op, align), device=cuda_device)
+    before = dict(_lib.LAUNCHES)
+    p, tmax = stc.psd_phase1_b3(sig, count - 19, a2, nb_pad, t_pad, round_bf16)
+    torch.cuda.synchronize()
+    assert _launch_deltas(before) == {k: int(k == "psd_phase1_b3") for k in before}
+    if round_bf16:
+        p32 = stc.psd_phase1_b3(sig, count - 19, a2, nb_pad, t_pad)[0]
+        pq = p32.to(torch.bfloat16).float()
+        assert torch.equal(p, pq)
+        assert torch.equal(tmax, pq.reshape(nb_pad, -1, stc.PSD_TILE).amax(dim=(0, 2)))
+        p, tmax = p32, None
+    p_ref, tmax_ref = stc.psd_phase1_b3_ref(sig, count - 19, a2, nb_pad, t_pad)
+    gmax = float(tmax_ref.max())
+    assert bool(((p - p_ref).abs() <= 1e-6 * gmax + 1e-4 * p_ref.abs()).all())
+    assert bool((p[:, count - 19:] == 0).all())
+    if tmax is not None:
+        torch.testing.assert_close(tmax, tmax_ref, rtol=1e-5, atol=0.0)
+    exact = stc.psd_phase1_ref(sig, count - 19, a2, nb_pad, t_pad)[0]
+    assert _snr_db(p.cpu().numpy(), exact.cpu().numpy()) > 100.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [256, 1000])
+def test_exact_phase1_round_flag_is_bf16_rounding(cuda_device, nfft):
+    """K2b (nfft 256) and K4a (nfft 1000) with the bf16 store's flag: p and
+    the maxima bit-equal to the bf16 rounding of the unrounded kernel's."""
+    sig = torch.as_tensor(_signal(70_000, 69_000), device=cuda_device)
+    op = StftOperator.create(**{**OP_KW, "nfft": nfft})
+    nb_pad = -(-op.num_bins // 16) * 16
+    t_pad = -(-(70_000 - 19) // stc.PSD_TILE) * stc.PSD_TILE
+    a2 = torch.as_tensor(stc._folded_operator(op, 16), device=cuda_device)
+    phase1 = stc.psd_phase1 if nb_pad <= stc.UNTILED_MAX_BINS else stc.psd_phase1_tiled
+    p, tmax = phase1(sig, 69_000 - 19, a2, nb_pad, t_pad)
+    p_r, tmax_r = phase1(sig, 69_000 - 19, a2, nb_pad, t_pad, round_bf16=True)
+    torch.cuda.synchronize()
+    pq = p.to(torch.bfloat16).float()
+    assert torch.equal(p_r, pq)
+    assert torch.equal(stc._tile_max(tmax_r, t_pad),
+                       pq.reshape(nb_pad, -1, stc.PSD_TILE).amax(dim=(0, 2)))
 
 
 def _k4_run(sig, count, op, db_dtype, int_dtype, tiled=True):
