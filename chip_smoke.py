@@ -5,14 +5,17 @@
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
 and holds each against its plain PyTorch version, timing both: K1a (the
 bf16x3 profile on the tensor cores, also held to the exact profile at
-100 dB), K1c (one bf16 pass on the tensor cores, at 45 dB), K1b (the exact
-profile), K6 (the range FFT stored too) and K7 (the
+100 dB), K1c (one bf16 pass on the tensor cores, at 45 dB), K1b (six bf16
+passes on the tensor cores, the TPU's HIGHEST, also held to the exact
+profile at 120 dB), K6 (K1b with the range FFT stored too, its profile
+bit-equal to K1b's, its cube within 1e-5·max|rf| of the exact one) and K7
+(the
 fused peak search, T = 1 and 3) at the shapes of the production recording
 path (65,536 frames of 16 chirps × 64 samples), K2a (the bf16x3 PSD on the
 tensor cores, also held to the exact PSD at 100 dB and through K3 on the
 display band), K2b (the exact PSD, K4a's kernel) and K3 there at STFT nfft
 256, the bf16 PSD store's rounding flag of K2a, K2b and K4a, K3 and K5b at
-nfft 512 (K3's 64-column tiles), K4a/K4b at the
+nfft 430 and 512 (K3's 64-column tiles, K5b's 128), K4a/K4b at the
 fidelity profile's shape (1,024 frames, nfft 16,384)
 and at 65,536 columns of nfft 65,536, where offsets pass 2^31. Then it
 drives the main paths, each with the launch counters reset just before
@@ -49,7 +52,9 @@ right after itself, is ``ms_second_in_turn``), its plain version's time,
 its launches on the path that drives it, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its operations over the peak
 of their type (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s float32),
-the published H100 SXM figures. Any failed check raises, so the exit code
+the published H100 SXM figures; the operations of K1a and K1b/K6 are the
+bf16 passes they run (three and six products). Any failed check raises, so
+the exit code
 is non-zero. There is no CPU path: without a CUDA device it exits at once.
 """
 
@@ -234,9 +239,10 @@ def k4_times(stc, nb: int, operands, reps: int):
 
 def k3_wide_check(stc, db_floor, sig, nv, op) -> None:
     """K3 where its 128-column tiles no longer fit a block's shared memory
-    (nb_pad above 208, here nfft 512: nb_pad 264 with the float32 dB map,
-    272 with the bf16 one), so it runs 64-column tiles. Every store dtype
-    against the plain version; with the float32 dB map, K5b bit-equal."""
+    (nb_pad above 208: at nfft 430 nb_pad 216 with the float32 dB map, 224
+    with the bf16 one; at nfft 512 264 and 272), so it runs 64-column
+    tiles. Every store dtype against the plain version; with the float32
+    dB map, K5b (still on 128-column tiles there) bit-equal."""
     nb = op.num_bins
     t_pad = -(-(sig.shape[0] - 19) // stc.PSD_TILE) * stc.PSD_TILE
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
@@ -829,13 +835,20 @@ def main() -> int:
         text = log.read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
-        # K1a and K1c are profile_wgmma_kernel<3> and <1> (mangled ILi3EE,
-        # ILi1EE): "Function properties for" the name, a stack line, "Used".
-        wg = dict(re.findall(r"Function properties for \S*profile_wgmma_kernelILi(\d)EE"
-                             r"\S*\n[^\n]*\n[^\n]*Used (\d+) registers", text))
+        # K1a, K1c, K1b and K6 are profile_wgmma_kernel<3, false>, <1,
+        # false>, <6, false> and <6, true> (mangled ILi3ELb0EE, ...):
+        # "Function properties for" the name, its stack and spill line,
+        # then "Used".
+        names = {("3", "0"): "K1a", ("1", "0"): "K1c", ("6", "0"): "K1b",
+                 ("6", "1"): "K6"}
+        wg = {names.get((p, rf), p + rf): f"{n} registers, {sp} bytes spilled"
+              for p, rf, sp, n in re.findall(
+                  r"Function properties for \S*profile_wgmma_kernelILi(\d)ELb(\d)E"
+                  r"\S*\n[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) "
+                  r"registers", text)}
         print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} registers "
-              f"a thread (K1a {wg.get('3', '?')}, K1c {wg.get('1', '?')}), "
-              f"{sum(spills)} bytes of spill stores in all")
+              f"a thread, {sum(spills)} bytes of spill stores in all; the "
+              f"wgmma fast-time kernels: {wg}")
 
     # The main path's input: a 65,536-frame recording, two targets, about
     # 10% of frames muted so that slow-time packing is not the identity.
@@ -890,7 +903,7 @@ def main() -> int:
           f"by the port: one bf16 "
           f"torch.matmul [{rows_x},128]@[128,512] alone {yard_ms:.4f} ms")
     rows.append(dict(name="fast_time_profile_b3", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile_b3.cu",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
                      max_abs_err=k1a_err, ms=ms1a, plain_ms=plain_ms1a, ms_second=second1a,
                      bound=bound(x.numel() * 4 + 2 * w_hi.numel() * 2
@@ -919,7 +932,7 @@ def main() -> int:
           f"not used by the port: one bf16 torch.matmul [{rows_x},128]@[128,512] "
           f"alone {yard_ms:.4f} ms")
     rows.append(dict(name="fast_time_profile_bf16", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile_b3.cu",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
                      max_abs_err=k1c_err, ms=ms1c, plain_ms=plain_ms1c,
                      ms_second=second1c,
@@ -927,56 +940,88 @@ def main() -> int:
                                  + off.numel() * 4 + prof_bytes,
                                  product_ops, "bf16")))
 
-    # K1b, the exact class (impl "pallas_profile").
+    # K1b, the HIGHEST class (impl "pallas_profile"): six bf16 passes on the
+    # tensor cores, held to its six-pass plain version and to the exact
+    # float32 plain profile (120 dB).
+    prof_exact = prof
     prof_b = ftc.fast_time_profile(x, w, off, cfg.pn)
-    err = (prof_b - prof).abs()
+    prof_b6 = ftc.fast_time_profile_b6_ref(x, w, off, cfg.pn)
+    err = (prof_b - prof_b6).abs()
     k1_err = float(err.max())
-    k1_ok = bool((err <= 1e-2 + 1e-5 * prof.abs()).all())
+    k1b_snr = snr_db(prof_b, prof_exact)
+    k1_ok = bool((err <= 1e-2 + 1e-5 * prof_b6.abs()).all()) and k1b_snr >= 120.0
     print(f"[parity] K1b fast_time_profile {tuple(x.shape)} -> {tuple(prof_b.shape)}: "
-          f"max_abs_err {k1_err:.6g} (tol 1e-2 + 1e-5·|ref|) "
-          f"{'ok' if k1_ok else 'FAIL'}")
+          f"max_abs_err {k1_err:.6g} vs its six-pass plain version (tol 1e-2 + "
+          f"1e-5·|ref|); {k1b_snr:.2f} dB SNR vs the exact plain profile (tol "
+          f"120 dB) {'ok' if k1_ok else 'FAIL'}")
     check(k1_ok, "K1b parity")
-    prof = prof_b
+    del err, prof_b6
     ms, plain_ms, second1b = time_pair(lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
-                             lambda: ftc.fast_time_profile_ref(x, w, off, cfg.pn))
+                                       lambda: ftc.fast_time_profile_b6_ref(x, w, off,
+                                                                            cfg.pn))
+    # The bound of the TPU kernel's arithmetic, six bf16 passes, and beside
+    # it the float32 CUDA-core bound of one exact product.
+    b6_bound = bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4 + prof_bytes,
+                     6 * product_ops, "bf16")
+    f32_bound = bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4 + prof_bytes,
+                      product_ops, "f32")
     print(f"[time] K1b kernel {ms:.4f} ms (second in its turn {second1b:.4f}), "
-          f"plain {plain_ms:.4f} ms (median of {REPS})")
+          f"plain {plain_ms:.4f} ms (median of {REPS}); bound {b6_bound[0]:.4f} ms "
+          f"({b6_bound[1]}: 6 × {product_ops / 1e9:.1f} GFLOP at 989 TFLOP/s "
+          f"bf16; the float32 CUDA-core bound of one exact product is "
+          f"{f32_bound[0]:.4f} ms)")
     rows.append(dict(name="fast_time_profile", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
                      max_abs_err=k1_err, ms=ms, plain_ms=plain_ms, ms_second=second1b,
-                     bound=bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4
-                                 + prof_bytes, product_ops, "f32")))
-    del err, prof_b
+                     snr_db_vs_exact=k1b_snr, bound=b6_bound))
 
-    # K6 on the same x: the range FFT [F, PN, K, 2] (2 GiB) and the profile.
+    # K6 on the same x: the range FFT [F, PN, K, 2] (2 GiB) and the profile,
+    # held to its six-pass plain version, the cube to the exact float32
+    # product (rtol 1e-5 / atol 1e-5·max|rf|, the JAX package's bound
+    # between two summation orders), the profile bit-equal to K1b's.
     rf, prof6 = ftc.fast_time(x, w, off, cfg.pn)
-    rf_ref, prof6_ref = ftc.fast_time_ref(x, w, off, cfg.pn)
+    rf_ref, prof6_ref = ftc.fast_time_b6_ref(x, w, off, cfg.pn)
     err = (rf - rf_ref).abs()
     k6_err = float(err.max())
     k6_ok = bool((err <= 1e-2 + 1e-5 * rf_ref.abs()).all())
-    del err, rf_ref
-    perr = (prof6 - prof).abs()
-    k6_ok &= bool((perr <= 1e-2 + 1e-5 * prof.abs()).all())
     k6_ok &= bool(((prof6 - prof6_ref).abs() <= 1e-2 + 1e-5 * prof6_ref.abs()).all())
+    del err, rf_ref, prof6_ref
+    rf_x = ftc.fast_time_ref(x, w, off, cfg.pn)[0]
+    rf_scale = float(rf_x.abs().max())
+    rf_x_err = float((rf - rf_x).abs().max())
+    k6_ok &= bool(((rf - rf_x).abs() <= 1e-5 * rf_scale + 1e-5 * rf_x.abs()).all())
+    rf_snr = snr_db(rf, rf_x)
+    del rf_x
+    same = bool(torch.equal(prof6, prof_b))
+    k6_snr = snr_db(prof6, prof_exact)
+    k6_ok &= same and k6_snr >= 120.0
     print(f"[parity] K6 fast_time {tuple(x.shape)} -> rf {tuple(rf.shape)}: "
-          f"rf max_abs_err {k6_err:.6g} vs plain, profile max_abs_err "
-          f"{float(perr.max()):.6g} vs K1 (bit-equal: {bool(torch.equal(prof6, prof))}) "
-          f"(tol 1e-2 + 1e-5·|ref|) {'ok' if k6_ok else 'FAIL'}")
+          f"rf max_abs_err {k6_err:.6g} vs its six-pass plain version (tol 1e-2 + "
+          f"1e-5·|ref|); rf {rf_x_err:.6g} from the exact float32 product (tol "
+          f"1e-5·max|rf| = {1e-5 * rf_scale:.4g} + 1e-5·|ref|; {rf_snr:.2f} dB "
+          f"SNR); profile bit-equal to K1b's: {same}, {k6_snr:.2f} dB SNR vs the "
+          f"exact plain profile (tol 120 dB) {'ok' if k6_ok else 'FAIL'}")
     check(k6_ok, "K6 parity")
-    del rf, perr, prof6_ref, prof
+    del rf, prof_b
+    prof_exact_host = prof_exact.cpu()
+    del prof_exact, prof
     torch.cuda.empty_cache()
     ms6, plain_ms6, second6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
-                               lambda: ftc.fast_time_ref(x, w, off, cfg.pn))
-    print(f"[time] K6 kernel {ms6:.4f} ms, plain {plain_ms6:.4f} ms "
-          f"(median of {REPS})")
+                                        lambda: ftc.fast_time_b6_ref(x, w, off, cfg.pn))
+    rf_bytes = rows_x * k_bins * 2 * 4
+    b6_bound6 = bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4 + prof_bytes
+                      + rf_bytes, 6 * product_ops, "bf16")
+    print(f"[time] K6 kernel {ms6:.4f} ms (second in its turn {second6:.4f}), plain "
+          f"{plain_ms6:.4f} ms (median of {REPS}); bound {b6_bound6[0]:.4f} ms "
+          f"({b6_bound6[1]}; its bytes, the {rf_bytes / 1e6:,.0f} MB cube with x and "
+          f"the profile, "
+          f"{(x.numel() * 4 + prof_bytes + rf_bytes) / HBM_BYTES_S * 1e3:.4f} ms)")
     rows.append(dict(name="fast_time", route="cuda",
-                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_profile.cu",
+                     source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:35",
                      max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6, ms_second=second6,
-                     bound=bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4
-                                 + prof_bytes + rows_x * k_bins * 2 * 4,
-                                 product_ops, "f32")))
+                     snr_db_vs_exact=k6_snr, bound=b6_bound6))
     torch.cuda.empty_cache()
 
     # K7 on K6's profile [65,536, 256], at T = 1 and on a T = 3 config: every
@@ -1177,13 +1222,15 @@ def main() -> int:
                                  + 1024 * 12 + 4, db_ops(t_pad, nb_pad), "f32")))
     del p, tmax
     torch.cuda.empty_cache()
-    # K3 at nfft 512 (the production profile's stft_nfft=512 option) on the
-    # last 16,384 frames' samples, which straddle the valid count.
+    # K3 at nfft 430 and 512 (the production profile's stft_nfft=512
+    # option) on the last 16,384 frames' samples, which straddle the valid
+    # count.
     start = length - 16_384 * cfg.pn
     check(0 < count - start < length - start, "the nfft 512 input straddles the count")
-    k3_wide_check(stc, DB_FLOOR, sig[start:].contiguous(), count - start - 19,
-                  StftOperator.create(window_length=20, beta=3.0, nfft=512,
-                                      fs=1.0 / cfg.derived.prt))
+    for wide_nfft in (430, 512):
+        k3_wide_check(stc, DB_FLOOR, sig[start:].contiguous(), count - start - 19,
+                      StftOperator.create(window_length=20, beta=3.0, nfft=wide_nfft,
+                                          fs=1.0 / cfg.derived.prt))
     del sig, x
     torch.cuda.empty_cache()
 
@@ -1375,11 +1422,12 @@ def main() -> int:
     main_intensity = inten
     del out, psd
 
-    # 5a'. The exact chain, impl "pallas_profile" (K1b) with the exact
-    # export (stft_psd_precision "highest": K2b), on the same recording,
-    # counted: detections, ranges and speeds equal the main path's (bf16x3)
-    # exactly, and the main path's waterfall is within 100 dB of this exact
-    # one.
+    # 5a'. The exact chain, impl "pallas_profile" (K1b, six bf16 passes)
+    # with the exact export (stft_psd_precision "highest": K2b), on the same
+    # recording, counted: detections equal the target frames and ranges the
+    # injected range; its waterfall within 120 dB of the exact float32
+    # profile; detections, ranges and speeds of the main path (bf16x3) equal
+    # to it, and the main path's waterfall within 100 dB of it.
     xcfg = RadarConfig.create(default_device_config(),
                               AlgorithmConfig.production(stft_psd_precision="highest"))
     xpipe = RadarPipeline(xcfg, device=dev, impl="pallas_profile")
@@ -1397,6 +1445,18 @@ def main() -> int:
                                       "db_rescale")) for k in x_launches},
           "impl='pallas_profile', psd precision 'highest': K1b, K2b, K3 once "
           "each, no K1a or K2a")
+    check(np.array_equal(xout.detected, present)
+          and np.all(xout.target_range[0, xout.detected] == want_range)
+          and np.all(xout.target_speed[0, xout.detected] == want_speed),
+          f"exact chain: detected frames = target frames, ranges = {want_range}, "
+          f"speeds = {want_speed}")
+    x_snr = snr_db(xout.waterfall, prof_exact_host.T)  # the waterfall is (K, F)
+    check(x_snr >= 120.0, f"exact chain waterfall {x_snr:.2f} dB vs the exact "
+          "float32 profile (tol 120 dB)")
+    print(f"[exact] detections = the target frames, ranges {want_range} m; "
+          f"waterfall {x_snr:.2f} dB SNR against the exact float32 profile (tol "
+          "120 dB)")
+    del prof_exact_host
     for name, a, b in zip(("detected", "ranges", "speeds"), main_meas,
                           (xout.detected, xout.target_range, xout.target_speed)):
         check(np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
@@ -1682,8 +1742,8 @@ def main() -> int:
         lambda: stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb, 1024, t_pad,
                                              bf16))
     print(f"[time] K5a kernel {ms5a:.4f} ms (second in its turn {second5a:.4f}), "
-          f"plain {plain_ms5a:.4f} ms; K5b kernel {ms5b:.4f} ms, plain "
-          f"{plain_ms5b:.4f} ms (median of {REPS})")
+          f"plain {plain_ms5a:.4f} ms; K5b kernel {ms5b:.4f} ms (second in its "
+          f"turn {second5b:.4f}), plain {plain_ms5b:.4f} ms (median of {REPS})")
     rows.append(dict(name="psd_tmax", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",

@@ -1,7 +1,7 @@
 // The numeric contract shared by the exact export kernels K3 and K5b
 // (stft_export.cu) and K4a (which K2b and K5a launch), K4b and their
 // recompute pair (stft_export_tiled.cu): the PSD values of windows, the dB
-// of one PSD value, and the emission of a float32 result in the store
+// of one PSD value, and the emission of float32 results in the store
 // dtype. One definition, so every path rounds alike: the recompute pairs
 // reproduce the materializing pairs' outputs bit for bit, and K4b
 // reproduces K3's.
@@ -50,13 +50,35 @@ __device__ __forceinline__ void psd_values(
   }
 }
 
-// One window's PSD value: psd_values for a single column.
-__device__ __forceinline__ float psd_value(const float (&xv)[kStftTaps],
-                                           const float4* ore,
-                                           const float4* oim) {
-  float p[1];
-  psd_values<1>(xv, ore, oim, p);
-  return p[0];
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// x = xs[lt .. lt + kN): whole float4 loads (lt a multiple of 4; xs holds
+// at least lt + round4(kN) floats).
+template <int kN>
+__device__ __forceinline__ void load_window(const float* xs, int lt,
+                                            float (&x)[kN]) {
+  const float4* s = reinterpret_cast<const float4*>(xs + lt);
+#pragma unroll
+  for (int q = 0; q < (kN + 3) / 4; ++q) {
+    const float4 v = s[q];
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * q + j < kN) x[4 * q + j] = w[j];
+    }
+  }
+}
+
+// The PSD of kCols adjacent columns t .. t + kCols − 1 of one operator row
+// pair, zero at columns ≥ nv: the arithmetic K4a, K5b and the bin-blocked
+// recompute share.
+template <int kCols>
+__device__ __forceinline__ void psd_group(
+    const float (&x)[kCols + kStftTaps - 1], const float4* ore,
+    const float4* oim, int t, int nv, float (&pv)[kCols]) {
+  psd_values<kCols>(x, ore, oim, pv);
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) pv[c] = t + c < nv ? pv[c] : 0.f;
 }
 
 // db = max(LN10_INV_20 · ln(max(p, 1e-45) / safe), floor) where p > 0, else
@@ -74,28 +96,18 @@ __device__ __forceinline__ float psd_to_db(float pv, float safe,
 // time, and this spreads those eight over all 32 banks.
 __device__ __forceinline__ int tile_chunk(int c) { return c ^ ((c >> 3) & 1); }
 
-// float32 as is; bf16 round-to-nearest-even; int8 the affine dB code over
-// [lo, lo + 255 / scale], half to even (rintf, like jnp.round), clamped.
-__device__ __forceinline__ void emit(float* dst, float v, float, float) {
-  *dst = v;
-}
-__device__ __forceinline__ void emit(__nv_bfloat16* dst, float v, float,
-                                     float) {
-  *dst = __float2bfloat16_rn(v);
-}
+// The int8 code of a dB value: the affine code over [lo, lo + 255 / scale],
+// half to even (rintf, like jnp.round), clamped.
 __device__ __forceinline__ int8_t int8_code(float v, float lo, float scale) {
   float q = rintf((v - lo) * scale);
   q = fminf(fmaxf(q, 0.f), 255.f);
   return (int8_t)(int)(q - 128.f);
 }
-__device__ __forceinline__ void emit(int8_t* dst, float v, float lo,
-                                     float scale) {
-  *dst = int8_code(v, lo, scale);
-}
 
-// emit of 8 consecutive values (dst 16-byte aligned for float and bf16, 8
-// for int8) as whole 16- or 8-byte streaming stores (st.global.cs): what
-// nothing on the device reads again should not stay in L2.
+// 8 consecutive values in the store dtype (dst 16-byte aligned for float
+// and bf16, 8 for int8) as whole 16- or 8-byte streaming stores
+// (st.global.cs: what nothing on the device reads again should not stay in
+// L2): float32 as is, bf16 round-to-nearest-even, int8 int8_code.
 __device__ __forceinline__ void emit8(float* dst, const float (&v)[8], float,
                                       float) {
   __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));

@@ -1,61 +1,78 @@
-// K1a and K1c — the profile kernels on the tensor cores: fused fast-time
+// K1a, K1b, K1c and K6 — the fast-time kernels on the tensor cores: fused
 // range DFT, magnitude and max over chirps as bf16 wgmma products, one
-// template on the number of passes.
+// template on the number of passes (and, for K6, on storing the range FFT).
 //
 // K1a (three passes) replaces the Pallas kernel
 // ops/fast_time_pallas.py::_profile_kernel_b3 of the JAX package (impl
 // "pallas_profile_high", the accelerator default); K1c (one pass) replaces
 // ops/fast_time_pallas.py::_profile_kernel at Precision.DEFAULT (impl
-// "pallas_profile_bf16"). For flat pair rows x [F·PN, 128] (interleaved
-// re, im samples) and the BLOCKED packed weight W [128, 2·K] split once per
-// chain into bf16 halves w_hi = bf16(W), w_lo = bf16(W − w_hi):
+// "pallas_profile_bf16"); K1b (six passes) replaces the same kernel at
+// Precision.HIGHEST (impl "pallas_profile"), and K6, the six passes with
+// the range FFT stored, replaces ops/fast_time_pallas.py::_kernel (impl
+// "pallas", HIGHEST too). For flat pair rows x [F·PN, 128] (interleaved re,
+// im samples) and the BLOCKED packed weight W [128, 2·K]:
 //
-//     x_hi = bf16(x);  x_lo = bf16(x − x_hi)
-//     K1a: y = x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off   (float32 sums)
-//     K1c: y = x_hi·w_hi − off                            (float32 sums)
+//     K1a: x_hi = bf16(x), x_lo = bf16(x − x_hi); W split once per chain
+//          into w_hi = bf16(W), w_lo = bf16(W − w_hi);
+//          y = x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off
+//     K1c: y = x_hi·w_hi − off
+//     K1b, K6: x = x1 + x2 + x3 with x1 = bf16(x), x2 = bf16(x − x1),
+//          x3 = bf16(x − x1 − x2), and W = w1 + w2 + w3 likewise (split
+//          here, from the float32 W); y = x1·w2 + x2·w1 + x1·w3 + x2·w2 +
+//          x3·w1 + x1·w1 − off — the six bf16 passes of the TPU's HIGHEST
 //     prof[f, k] = max over the PN chirps of frame f of
-//                  sqrt(y[r, k]² + y[r, K + k]²)
+//                  sqrt(y[r, k]² + y[r, K + k]²);   K6 also rf[r, k] = y
 //
-// the TPU kernels' arithmetic: every product of two bf16 values is exact in
-// float32; K1a's dropped x_lo·w_lo term is about 2^-18 of |y|, K1c keeps
-// bf16's 8-bit operands (about 2^-9 relative).
+// with float32 sums. Every product of two bf16 values is exact in float32.
+// K1a drops x_lo·w_lo (about 2^-18 of |y|), K1c keeps bf16's 8-bit operands
+// (about 2^-9); the three terms of K1b/K6 hold all 24 bits of x and of W, so
+// only the dropped x2·w3, x3·w2, x3·w3 (about 2^-27) and the float32 sums
+// part them from the exact product. The five correction products go into
+// the accumulator before the main x1·w1 ones: while they are summed it
+// holds about 2^-8 of |y|, so only the last eight of its 48 roundings per
+// row tile are at the scale of |y|.
 //
-// What bounds them on an H100, at 65,536 frames: K1a operations — three
-// bf16 products of 2·F·16·128·512 flops (412 GFLOP) take 0.417 ms at the
-// 989 TFLOP/s bf16 peak, the x read (537 MB) alone 0.16 ms at 3.35 TB/s.
-// K1c bytes — its one product (137 GFLOP, 0.139 ms) is under the 537 MB of
-// x and 67 MB of profile (0.180 ms). So the products go to the tensor
-// cores through wgmma, and everything else hides under them; at one pass
-// the reads of x set the pace.
+// What bounds them on an H100, at 65,536 frames (one product is
+// 2·F·16·128·512 flops, 137.4 GFLOP): K1a operations — three passes take
+// 0.417 ms at the 989 TFLOP/s bf16 peak, the x read (537 MB) alone 0.16 ms
+// at 3.35 TB/s. K1c bytes — its one product (0.139 ms) is under the 537 MB
+// of x and 67 MB of profile (0.180 ms). K1b operations — six passes, 824
+// GFLOP, take 0.834 ms. K6 the same 0.834 ms of operations against 0.821 ms
+// of bytes (x, the 2,147 MB range FFT and the profile): its rf store has to
+// overlap the products. So the products go to the tensor cores through
+// wgmma, and everything else hides under them.
 //
 // Design. A block owns a slice of 64 bins: 128 columns of W (64 re, then
-// 64 im), w_hi (and for K1a w_lo) 32 KiB of bf16 each, resident in shared
-// memory for the block's life in wgmma's K-major core-matrix layout (8
-// columns × 8 K values per 128-byte core matrix, no swizzle). Its three
-// warpgroups walk 64-row tiles of x (four frames) independently, each with
-// one x buffer (rows padded to 136 floats, so the fragment loads below hit
-// 32 distinct banks). Per 16-deep K step a warpgroup loads its A fragments
-// from shared memory straight into the register layout of wgmma's A
-// operand, rounding each float pair to a bf16 pair on the way (K1a splits
-// it into hi and lo pairs), and issues that step's m64n128k16 products —
-// K1a x_hi·w_hi, x_lo·w_hi and x_hi·w_lo, K1c x_hi·w_hi — into one float32
-// accumulator (A from registers, B from shared memory), so the conversion
-// of one step overlaps the products of the previous one. Once all
+// 64 im), its bf16 terms (w_hi and for K1a w_lo; w1, w2, w3 for K1b/K6) 32
+// KiB each, resident in shared memory for the block's life in wgmma's
+// K-major core-matrix layout (8 columns × 8 K values per 128-byte core
+// matrix, no swizzle). Its warpgroups (three; two for six passes, whose
+// fragments need 96 registers) walk 64-row tiles of x (four frames)
+// independently, each with one x buffer (rows padded to 136 floats, so the
+// fragment loads below hit 32 distinct banks). Per 16-deep K step a
+// warpgroup loads its A fragments from shared memory straight into the
+// register layout of wgmma's A operand, splitting each float pair into bf16
+// pairs on the way, and issues that step's m64n128k16 products into one
+// float32 accumulator (A from registers, B from shared memory), so the
+// split of one step overlaps the products of the previous one. Once all
 // fragments are in registers, cp.async refills the buffer with the
 // warpgroup's next tile while the products and the epilogue run. wgmma and
 // not mma.sync: one warpgroup instruction covers 64 rows × 128 columns,
-// reads B once per instruction for all four warps (mma.sync would load
-// each warp's B fragments itself, at more shared-memory traffic than the
-// SM has for this ratio), and runs asynchronously, so one warpgroup's
-// split and epilogue overlap the others' products (a fourth warpgroup
-// would not fit K1a's register file).
+// reads B once per instruction for all four warps, and runs
+// asynchronously, so one warpgroup's split and epilogue overlap the
+// others' products.
 // The accumulator layout puts the re column of a bin (j < 8) and its im
 // column (j + 8) in the same thread, and the 16 rows of one frame in one
 // warp: the epilogue subtracts off, takes re² + im², folds the thread's
 // two rows, finishes the max over the frame's 16 chirps with a transposing
 // shuffle butterfly that leaves each lane two bins, and stores their
 // square roots (a float2; the warp writes its frame's 256-byte profile
-// slice at once).
+// slice at once). K6's epilogue first stores y: a thread holds (re, im) of
+// bins 8j + 2t and 8j + 2t + 1 for two rows, one 16-byte store each per
+// (j, row), so a warp writes whole 32-byte sectors, eight 64-byte runs per
+// instruction; the offsets are 64-bit (F·PN·K·2 passes 2^31 at 262,144
+// frames). The profile comes from the same registers with or without that
+// store, so K1b's and K6's are bit-equal.
 //
 // The x tiles of the four bin slices are read by four blocks that walk the
 // rows in step, so the second to fourth reads come from L2.
@@ -71,8 +88,6 @@ constexpr int kIn = 128;            // 2·NTS: the K of the product
 constexpr int kRows = 64;           // rows per warpgroup tile: four frames
 constexpr int kSliceBins = 64;      // bins per block slice
 constexpr int kSliceCols = 2 * kSliceBins;  // W columns per slice: re | im
-constexpr int kWarpgroups = 3;
-constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kKSteps = kIn / 16;   // wgmma k16 steps
 constexpr int kXStride = kIn + 8;   // floats per padded x row in shared memory
 constexpr int kXFloats = kRows * kXStride;
@@ -82,12 +97,18 @@ constexpr int kLbo = 128;
 constexpr int kSbo = (kIn / 8) * kLbo;
 constexpr int kWBytes = kSliceCols * kIn * 2;  // one bf16 slice: 32 KiB
 
-// Weight halves staged: w_hi and w_lo for three passes, w_hi for one.
-__host__ __device__ constexpr int weight_halves(int passes) {
-  return passes == 3 ? 2 : 1;
+// bf16 terms of W staged: w_hi for one pass, w_hi and w_lo for three, w1,
+// w2, w3 for six.
+__host__ __device__ constexpr int weight_terms(int passes) {
+  return passes == 6 ? 3 : passes == 3 ? 2 : 1;
+}
+// Warpgroups a block: three, or two where six passes' fragments would not
+// fit three warpgroups' registers.
+__host__ __device__ constexpr int warpgroups(int passes) {
+  return passes == 6 ? 2 : 3;
 }
 __host__ __device__ constexpr int smem_bytes(int passes) {
-  return weight_halves(passes) * kWBytes + kWarpgroups * kXFloats * 4 +
+  return weight_terms(passes) * kWBytes + warpgroups(passes) * kXFloats * 4 +
          kSliceCols * 4;
 }
 
@@ -163,37 +184,62 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// A float pair → its bf16 hi pair and the bf16 pair of the remainders
-// (low half = first value, as wgmma's A fragment packs them).
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A float pair → its bf16 pair (round to nearest even; low half = first
+// value, as wgmma's A fragment packs them).
+__device__ __forceinline__ uint32_t bf16_pair(float2 v) {
+  return as_u32(__floats2bfloat162_rn(v.x, v.y));
+}
+
+// A float pair → its bf16 hi pair and the bf16 pair of the remainders.
 __device__ __forceinline__ void split_pair(float2 v, uint32_t& hi,
                                            uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
   const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  hi = as_u32(h);
+  lo = bf16_pair(make_float2(v.x - hf.x, v.y - hf.y));
 }
 
-// A float pair → its bf16 pair (round to nearest even), packed as above.
-__device__ __forceinline__ uint32_t bf16_pair(float2 v) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// A float pair → its three bf16 terms: t1 = bf16(v), t2 = bf16(v − t1),
+// t3 = bf16(v − t1 − t2) (each remainder exact in float32).
+__device__ __forceinline__ void split3_pair(float2 v, uint32_t& t1,
+                                            uint32_t& t2, uint32_t& t3) {
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(v.x, v.y);
+  const float2 f1 = __bfloat1622float2(h1);
+  const float2 r1 = make_float2(v.x - f1.x, v.y - f1.y);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(r1.x, r1.y);
+  const float2 f2 = __bfloat1622float2(h2);
+  t1 = as_u32(h1);
+  t2 = as_u32(h2);
+  t3 = bf16_pair(make_float2(r1.x - f2.x, r1.y - f2.y));
 }
 
-// kPasses 3: K1a (bf16x3); 1: K1c (one bf16 pass, w_lo unused).
-template <int kPasses>
-__global__ void __launch_bounds__(kThreads, 1)
-profile_wgmma_kernel(const float* __restrict__ x,
+// re² + im², rounded the same way wherever it is computed (no contraction
+// choice of the compiler can differ between instantiations).
+__device__ __forceinline__ float sq_mag(float re, float im) {
+  return __fmaf_rn(re, re, __fmul_rn(im, im));
+}
+
+// kPasses 3: K1a (bf16x3 from w_hi/w_lo); 1: K1c (w_hi alone); 6: K1b, or
+// with kStoreRf K6 (W split here into three terms; rf [rows, k, 2] stored).
+template <int kPasses, bool kStoreRf>
+__global__ void __launch_bounds__(128 * warpgroups(kPasses), 1)
+profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const __nv_bfloat16* __restrict__ w_hi,
                      const __nv_bfloat16* __restrict__ w_lo,
                      const float* __restrict__ off, float* __restrict__ prof,
-                     int rows, int k, int row_tiles) {
-  static_assert(kPasses == 1 || kPasses == 3, "one bf16 pass or bf16x3");
-  constexpr int kHalves = weight_halves(kPasses);
+                     float* __restrict__ rf, int rows, int k, int row_tiles) {
+  static_assert(kPasses == 1 || kPasses == 3 || kPasses == 6,
+                "one bf16 pass, bf16x3 or six passes");
+  static_assert(!kStoreRf || kPasses == 6, "K6 is the six-pass form");
+  constexpr int kTerms = weight_terms(kPasses);
+  constexpr int kWarpgroups = warpgroups(kPasses);
+  constexpr int kThreads = 128 * kWarpgroups;
   extern __shared__ __align__(1024) uint8_t smem[];
-  uint8_t* whs = smem;                                   // w_hi slice
-  uint8_t* wls = smem + kWBytes;                         // w_lo slice (K1a)
-  float* xs = reinterpret_cast<float*>(smem + kHalves * kWBytes);
+  float* xs = reinterpret_cast<float*>(smem + kTerms * kWBytes);
   float* offs = xs + kWarpgroups * kXFloats;            // [kSliceCols]
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -223,22 +269,38 @@ profile_wgmma_kernel(const float* __restrict__ x,
   const int stride = gridDim.y * kWarpgroups;
   if (tile < row_tiles) load_tile(xwg, tile);
 
-  // The W slice, once: eight columns (16 bytes) of one K row per load,
-  // scattered into the core-matrix layout.
-  for (int i = tid; i < kHalves * kIn * (kSliceCols / 8); i += kThreads) {
-    const int half = i / (kIn * (kSliceCols / 8));
-    const int j = i % (kIn * (kSliceCols / 8));
+  // The W slice, once: eight columns (16 bytes of bf16) of one K row per
+  // item, scattered into the core-matrix layout of each term.
+  constexpr int kChunks = kIn * (kSliceCols / 8);
+  for (int i = tid; i < (kPasses == 6 ? 1 : kTerms) * kChunks; i += kThreads) {
+    const int term = i / kChunks;
+    const int j = i % kChunks;
     const int kk = j / (kSliceCols / 8);
     const int n8 = (j % (kSliceCols / 8)) * 8;
     const int col = n8 < kSliceBins ? k0 + n8 : k + k0 + (n8 - kSliceBins);
-    const __nv_bfloat16* src = (half ? w_lo : w_hi) + (size_t)kk * 2 * k + col;
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
-    uint8_t* dst = (half ? wls : whs) + (n8 / 8) * kSbo + (kk / 8) * kLbo +
-                   (kk % 8) * 2;
+    const int at = (n8 / 8) * kSbo + (kk / 8) * kLbo + (kk % 8) * 2;
+    if constexpr (kPasses == 6) {
+      const float4* src = reinterpret_cast<const float4*>(w + (size_t)kk * 2 * k + col);
+      const float4 lo4 = src[0], hi4 = src[1];
+      const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      *reinterpret_cast<uint16_t*>(dst + q * 16) = e[q];
+      for (int q = 0; q < 8; ++q) {
+        const __nv_bfloat16 b1 = __float2bfloat16_rn(v[q]);
+        const float r1 = v[q] - __bfloat162float(b1);
+        const __nv_bfloat16 b2 = __float2bfloat16_rn(r1);
+        const __nv_bfloat16 b3 = __float2bfloat16_rn(r1 - __bfloat162float(b2));
+        *reinterpret_cast<__nv_bfloat16*>(smem + at + q * 16) = b1;
+        *reinterpret_cast<__nv_bfloat16*>(smem + kWBytes + at + q * 16) = b2;
+        *reinterpret_cast<__nv_bfloat16*>(smem + 2 * kWBytes + at + q * 16) = b3;
+      }
+    } else {
+      const __nv_bfloat16* src = (term ? w_lo : w_hi) + (size_t)kk * 2 * k + col;
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        *reinterpret_cast<uint16_t*>(smem + term * kWBytes + at + q * 16) = e[q];
+      }
     }
   }
   for (int i = tid; i < kSliceCols; i += kThreads) {
@@ -248,8 +310,10 @@ profile_wgmma_kernel(const float* __restrict__ x,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const uint64_t desc_hi = make_desc(smem_addr(whs));
-  const uint64_t desc_lo = make_desc(smem_addr(wls));
+  // Descriptors of the staged terms: w_hi/w1, w_lo/w2, w3.
+  const uint64_t desc1 = make_desc(smem_addr(smem));
+  const uint64_t desc2 = make_desc(smem_addr(smem + kWBytes));
+  const uint64_t desc3 = make_desc(smem_addr(smem + 2 * kWBytes));
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -259,11 +323,12 @@ profile_wgmma_kernel(const float* __restrict__ x,
     warpgroup_sync(wg);  // the tile is in
 
     // Per K step: the A fragments of the warp's 16 rows, rounded to bf16
-    // (K1a: split into hi and lo), then that step's products, so the
-    // conversion of step ks + 1 overlaps the tensor cores' work on step ks.
+    // (K1a: split into hi and lo; six passes: into three terms), then that
+    // step's products, so the split of step ks + 1 overlaps the tensor
+    // cores' work on step ks.
     const float* xr0 = xwg + (warp * 16 + g) * kXStride + 2 * t;
     const float* xr1 = xr0 + 8 * kXStride;
-    uint32_t ah[kKSteps][4], al[kKSteps][4];
+    uint32_t a1[kKSteps][4], a2[kKSteps][4], a3[kKSteps][4];
 #pragma unroll
     for (int i = 0; i < 64; ++i) fence_reg(acc[i]);
 #pragma unroll
@@ -274,19 +339,38 @@ profile_wgmma_kernel(const float* __restrict__ x,
                            *reinterpret_cast<const float2*>(xr1 + 16 * ks + 8)};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        if constexpr (kPasses == 3) {
-          split_pair(v[q], ah[ks][q], al[ks][q]);
+        if constexpr (kPasses == 6) {
+          split3_pair(v[q], a1[ks][q], a2[ks][q], a3[ks][q]);
+        } else if constexpr (kPasses == 3) {
+          split_pair(v[q], a1[ks][q], a2[ks][q]);
         } else {
-          ah[ks][q] = bf16_pair(v[q]);
+          a1[ks][q] = bf16_pair(v[q]);
         }
       }
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       // Two core matrices (256 bytes) per K step: +16 in the address field.
       const uint64_t step = static_cast<uint64_t>(ks * (2 * kLbo >> 4));
-      wgmma_m64n128k16(acc, ah[ks], desc_hi + step, ks > 0 ? 1 : 0);
-      if constexpr (kPasses == 3) {
-        wgmma_m64n128k16(acc, al[ks], desc_hi + step, 1);
-        wgmma_m64n128k16(acc, ah[ks], desc_lo + step, 1);
+      const int scale = ks > 0 ? 1 : 0;
+      if constexpr (kPasses == 6) {
+        // The corrections; the main products follow after the last step.
+        wgmma_m64n128k16(acc, a1[ks], desc2 + step, scale);
+        wgmma_m64n128k16(acc, a2[ks], desc1 + step, 1);
+        wgmma_m64n128k16(acc, a1[ks], desc3 + step, 1);
+        wgmma_m64n128k16(acc, a2[ks], desc2 + step, 1);
+        wgmma_m64n128k16(acc, a3[ks], desc1 + step, 1);
+      } else {
+        wgmma_m64n128k16(acc, a1[ks], desc1 + step, scale);
+        if constexpr (kPasses == 3) {
+          wgmma_m64n128k16(acc, a2[ks], desc1 + step, 1);
+          wgmma_m64n128k16(acc, a1[ks], desc2 + step, 1);
+        }
+      }
+    }
+    if constexpr (kPasses == 6) {
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        wgmma_m64n128k16(acc, a1[ks],
+                         desc1 + static_cast<uint64_t>(ks * (2 * kLbo >> 4)), 1);
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -301,13 +385,31 @@ profile_wgmma_kernel(const float* __restrict__ x,
     for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        fence_reg(ah[ks][q]);
-        if constexpr (kPasses == 3) fence_reg(al[ks][q]);
+        fence_reg(a1[ks][q]);
+        if constexpr (kPasses >= 3) fence_reg(a2[ks][q]);
+        if constexpr (kPasses == 6) fence_reg(a3[ks][q]);
       }
     }
 
     // Epilogue. acc[4j + e]: column 8j + 2t + (e & 1), row g + 8·(e >> 1);
     // j < 8 are re columns of bins 8j + 2t + c, j + 8 their im columns.
+    if constexpr (kStoreRf) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tile * kRows + warp * 16 + g + 8 * h;
+        if (r < rows) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int b = 8 * j + 2 * t;
+            *reinterpret_cast<float4*>(&rf[((size_t)r * k + k0 + b) * 2]) =
+                make_float4(acc[4 * j + 2 * h] - offs[b],
+                            acc[4 * (j + 8) + 2 * h] - offs[kSliceBins + b],
+                            acc[4 * j + 2 * h + 1] - offs[b + 1],
+                            acc[4 * (j + 8) + 2 * h + 1] - offs[kSliceBins + b + 1]);
+          }
+        }
+      }
+    }
     // The max over the frame's 16 rows is taken on squared magnitudes
     // (sqrt is monotonic, so the result is the same): the thread's two
     // rows, then the eight row groups of the warp by a transposing
@@ -322,11 +424,9 @@ profile_wgmma_kernel(const float* __restrict__ x,
         const int b = 8 * j + 2 * t + c;
         const float ore = offs[b];
         const float oim = offs[kSliceBins + b];
-        const float yr0 = acc[4 * j + c] - ore;
-        const float yi0 = acc[4 * (j + 8) + c] - oim;
-        const float yr1 = acc[4 * j + 2 + c] - ore;
-        const float yi1 = acc[4 * (j + 8) + 2 + c] - oim;
-        sq[j][c] = fmaxf(yr0 * yr0 + yi0 * yi0, yr1 * yr1 + yi1 * yi1);
+        sq[j][c] = fmaxf(sq_mag(acc[4 * j + c] - ore, acc[4 * (j + 8) + c] - oim),
+                         sq_mag(acc[4 * j + 2 + c] - ore,
+                                acc[4 * (j + 8) + 2 + c] - oim));
       }
     }
 #pragma unroll
@@ -356,12 +456,13 @@ profile_wgmma_kernel(const float* __restrict__ x,
   }
 }
 
-template <int kPasses>
-int launch_profile(const float* x, const __nv_bfloat16* w_hi,
+template <int kPasses, bool kStoreRf = false>
+int launch_profile(const float* x, const float* w, const __nv_bfloat16* w_hi,
                    const __nv_bfloat16* w_lo, const float* off, float* prof,
-                   int rows, int k, void* stream) {
-  auto kernel = profile_wgmma_kernel<kPasses>;
+                   float* rf, int rows, int k, void* stream) {
+  auto kernel = profile_wgmma_kernel<kPasses, kStoreRf>;
   constexpr int smem = smem_bytes(kPasses);
+  constexpr int kWarpgroups = warpgroups(kPasses);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -370,14 +471,15 @@ int launch_profile(const float* x, const __nv_bfloat16* w_hi,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int slices = k / kSliceBins;
   const int row_tiles = (rows + kRows - 1) / kRows;
-  // One block per SM (the registers allow no second), the slices of a row
-  // tile side by side.
+  // One block per SM (shared memory and registers allow no second), the
+  // slices of a row tile side by side.
   int tiles_y = sms / slices;
   const int need = (row_tiles + kWarpgroups - 1) / kWarpgroups;
   if (tiles_y > need) tiles_y = need;
   if (tiles_y < 1) tiles_y = 1;
-  kernel<<<dim3(slices, tiles_y), kThreads, smem, (cudaStream_t)stream>>>(
-      x, w_hi, w_lo, off, prof, rows, k, row_tiles);
+  kernel<<<dim3(slices, tiles_y), 128 * kWarpgroups, smem,
+           (cudaStream_t)stream>>>(x, w, w_hi, w_lo, off, prof, rf, rows, k,
+                                   row_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -391,7 +493,8 @@ extern "C" int fast_time_profile_b3_launch(const float* x,
                                            const __nv_bfloat16* w_lo,
                                            const float* off, float* prof,
                                            int rows, int k, void* stream) {
-  return launch_profile<3>(x, w_hi, w_lo, off, prof, rows, k, stream);
+  return launch_profile<3>(x, nullptr, w_hi, w_lo, off, prof, nullptr, rows, k,
+                           stream);
 }
 
 // K1c: as above with w_hi alone (one bf16 pass).
@@ -399,5 +502,23 @@ extern "C" int fast_time_profile_bf16_launch(const float* x,
                                              const __nv_bfloat16* w_hi,
                                              const float* off, float* prof,
                                              int rows, int k, void* stream) {
-  return launch_profile<1>(x, w_hi, nullptr, off, prof, rows, k, stream);
+  return launch_profile<1>(x, nullptr, w_hi, nullptr, off, prof, nullptr, rows,
+                           k, stream);
+}
+
+// K1b: six bf16 passes of the float32 blocked weight w [128, 2k] (split in
+// the kernel); x, off, prof, rows, k as fast_time_profile_b3_launch.
+extern "C" int fast_time_profile_launch(const float* x, const float* w,
+                                        const float* off, float* prof,
+                                        int rows, int k, void* stream) {
+  return launch_profile<6>(x, w, nullptr, nullptr, off, prof, nullptr, rows, k,
+                           stream);
+}
+
+// K6: fast_time_profile_launch's prof, plus rf [rows, k, 2] f32.
+extern "C" int fast_time_launch(const float* x, const float* w,
+                                const float* off, float* prof, float* rf,
+                                int rows, int k, void* stream) {
+  return launch_profile<6, true>(x, w, nullptr, nullptr, off, prof, rf, rows, k,
+                                 stream);
 }

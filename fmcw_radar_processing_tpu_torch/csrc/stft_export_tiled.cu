@@ -77,8 +77,6 @@ constexpr int kAThreads = 128;
 constexpr int kACols = 8;                   // adjacent columns per thread
 constexpr int kATile = kAThreads * kACols;  // 1024 columns per K4a block
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
 constexpr int kASamples = round4(kATile + kWl);  // a K4a block's samples
 constexpr int kBThreads = 256;
 constexpr int kBTile = 64;                  // columns per K4b work item
@@ -90,34 +88,6 @@ constexpr int kBWave = 3;                   // PSD loads a thread keeps in fligh
 constexpr int kRcCols = 4;                  // recompute: columns a thread
 constexpr int kRcTiles = 8;                 // recompute: column tiles a block
 constexpr int kBSamples = round4(kBTile + kWl);  // a recompute tile's samples
-
-// x = xs[lt .. lt + kN): whole float4 loads (lt a multiple of 4; xs holds
-// at least lt + round4(kN) floats).
-template <int kN>
-__device__ __forceinline__ void load_window(const float* xs, int lt,
-                                            float (&x)[kN]) {
-  const float4* s = reinterpret_cast<const float4*>(xs + lt);
-#pragma unroll
-  for (int q = 0; q < (kN + 3) / 4; ++q) {
-    const float4 v = s[q];
-    const float w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (4 * q + j < kN) x[4 * q + j] = w[j];
-    }
-  }
-}
-
-// The PSD of kCols adjacent columns t .. t + kCols − 1 of one operator row
-// pair, zero at columns ≥ nv: the arithmetic K4a and the recompute share.
-template <int kCols>
-__device__ __forceinline__ void psd_group(
-    const float (&x)[kCols + kWl - 1], const float4* ore, const float4* oim,
-    int t, int nv, float (&pv)[kCols]) {
-  psd_values<kCols>(x, ore, oim, pv);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) pv[c] = t + c < nv ? pv[c] : 0.f;
-}
 
 // kStore = true is K4a; false is psd_tmax_tiled (tmax only, p untouched).
 // kRound: every value rounded to bf16 (round to nearest even) before the

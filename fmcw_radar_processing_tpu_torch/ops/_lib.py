@@ -26,9 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fast_time_profile.cu", "fast_time_profile_b3.cu",
-           "stft_export.cu", "stft_export_tiled.cu", "stft_psd_b3.cu",
-           "detect.cu")
+SOURCES = ("fast_time_wgmma.cu", "stft_export.cu", "stft_export_tiled.cu",
+           "stft_psd_b3.cu", "detect.cu")
 HEADERS = ("export_common.cuh",)
 # No --use_fast_math: it flushes subnormals to zero (the 1e-45 floor of the
 # dB map is subnormal) and swaps in approximate logf/sqrtf.

@@ -1,34 +1,39 @@
 """K1a, K1b, K1c and K6: fused fast-time range DFT + magnitude + max over
-chirps.
+chirps, all on the tensor cores (``csrc/fast_time_wgmma.cu``, one kernel
+template on the number of bf16 passes).
 
 Four wrappers:
 
   K1a :func:`fast_time_profile_b3` — the profile [F, K] only, as the bf16x3
-      product on the tensor cores (``csrc/fast_time_profile_b3.cu``;
-      replaces the JAX package's Pallas
+      product (replaces the JAX package's Pallas
       ``ops/fast_time_pallas.py::_profile_kernel_b3``, impl
       "pallas_profile_high", the production class);
-  K1b :func:`fast_time_profile` — the same profile at exact float32 on the
-      CUDA cores (``csrc/fast_time_profile.cu``; replaces
-      ``_profile_kernel``, impl "pallas_profile", the HIGHEST class);
-  K1c :func:`fast_time_profile_bf16` — the same profile as one bf16 pass on
-      the tensor cores (K1a's kernel with the hi·hi product alone; replaces
-      ``_profile_kernel`` at ``Precision.DEFAULT``, impl
+  K1b :func:`fast_time_profile` — the same profile as six bf16 passes, the
+      TPU's ``Precision.HIGHEST`` (replaces ``_profile_kernel``, impl
+      "pallas_profile", the HIGHEST class);
+  K1c :func:`fast_time_profile_bf16` — the same profile as one bf16 pass
+      (replaces ``_profile_kernel`` at ``Precision.DEFAULT``, impl
       "pallas_profile_bf16");
-  K6  :func:`fast_time` — K1b's kernel storing the range FFT [F, PN, K, 2]
-      as well (replaces ``ops/fast_time_pallas.py::_kernel``, impl
+  K6  :func:`fast_time` — K1b's six passes storing the range FFT [F, PN, K,
+      2] as well (replaces ``ops/fast_time_pallas.py::_kernel``, impl
       "pallas").
 
-Each launches its kernel for CUDA tensors and runs its plain PyTorch
-version (:func:`fast_time_profile_b3_ref`, :func:`fast_time_profile_ref`,
-:func:`fast_time_profile_bf16_ref`, :func:`fast_time_ref`) for CPU
-tensors. None falls back: on a CUDA tensor it launches or raises.
+Each launches its kernel for CUDA tensors and runs a plain PyTorch version
+for CPU tensors: K1a and K1c their own arithmetic
+(:func:`fast_time_profile_b3_ref`, :func:`fast_time_profile_bf16_ref`);
+K1b and K6 the exact float32 product (:func:`fast_time_profile_ref`,
+:func:`fast_time_ref`), as the JAX package's interpret mode computes
+HIGHEST exactly on the CPU. Their six-pass plain versions
+(:func:`fast_time_profile_b6_ref`, :func:`fast_time_b6_ref`) repeat the
+kernel's arithmetic and are the kernels' yardstick on the card. None falls
+back: on a CUDA tensor it launches or raises.
 
 The kernels take the BLOCKED packed weight of
 :func:`_packed_blocked_weight` (columns [:K] give the real part of each
 bin, [K:] the imaginary part), not ``PackedFastTime.w``'s interleaved
 columns; K1a takes it split into bf16 halves by :func:`split_bf16x3`, K1c
-the high half alone.
+the high half alone, K1b and K6 the float32 weight, which the kernel
+splits into :func:`split_bf16x6`'s three terms itself.
 """
 
 from __future__ import annotations
@@ -81,6 +86,50 @@ def split_bf16x3(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w_hi, (w - w_hi.to(torch.float32)).to(torch.bfloat16)
 
 
+def split_bf16x6(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(t1, t2, t3) bf16 on t's device: t1 = bf16(t), t2 = bf16(t − t1),
+    t3 = bf16(t − t1 − t2), round to nearest even, the remainders exact in
+    float32 — the three terms of the six-pass product, as K1b and K6 split
+    x and W. For normal float32 values whose remainders stay normal,
+    t1 + t2 + t3 == t exactly (24 bits in three 8-bit terms)."""
+    t1 = t.to(torch.bfloat16)
+    r1 = t - t1.to(torch.float32)
+    t2 = r1.to(torch.bfloat16)
+    return t1, t2, (r1 - t2.to(torch.float32)).to(torch.bfloat16)
+
+
+def _b6_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x·W as the six bf16 passes of K1b/K6: the five correction products
+    x1·w2 + x2·w1 + x1·w3 + x2·w2 + x3·w1 first, then x1·w1, each a float32
+    matmul of the bf16 terms (every product exact in float32)."""
+    pin_f32_matmul()
+    x1, x2, x3 = (a.to(torch.float32) for a in split_bf16x6(x))
+    w1, w2, w3 = (a.to(torch.float32) for a in split_bf16x6(w))
+    return (x1 @ w2 + x2 @ w1 + x1 @ w3 + x2 @ w2 + x3 @ w1) + x1 @ w1
+
+
+def fast_time_profile_b6_ref(x: torch.Tensor, w: torch.Tensor,
+                             off: torch.Tensor, pn: int) -> torch.Tensor:
+    """Plain version of K1b's kernel: the six-pass product of x [F·PN,
+    2·NTS] and the float32 blocked weight w, minus off, |·| and the max
+    over the PN chirps of each frame → profile [F, K]."""
+    k = w.shape[1] // 2
+    y = _b6_product(x, w) - off
+    mag = torch.sqrt(y[:, :k] * y[:, :k] + y[:, k:] * y[:, k:])
+    return mag.reshape(-1, pn, k).amax(dim=1)
+
+
+def fast_time_b6_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
+                     pn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6's kernel: (rf [F, PN, K, 2], profile [F, K]) of
+    the six-pass product."""
+    k = w.shape[1] // 2
+    y = _b6_product(x, w) - off
+    rf = torch.stack([y[:, :k], y[:, k:]], dim=-1).reshape(-1, pn, k, 2)
+    return rf, range_profile(rf)
+
+
 def fast_time_profile_b3_ref(x: torch.Tensor, w_hi: torch.Tensor,
                              w_lo: torch.Tensor, off: torch.Tensor,
                              pn: int) -> torch.Tensor:
@@ -112,8 +161,8 @@ def fast_time_profile_bf16_ref(x: torch.Tensor, w_hi: torch.Tensor,
 
 def fast_time_profile_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
                           pn: int) -> torch.Tensor:
-    """Plain version: x [F·PN, 2·NTS] @ W − off, |·|, max over the PN chirps
-    of each frame → profile [F, K]."""
+    """The exact profile: x [F·PN, 2·NTS] @ W − off at float32, |·|, max
+    over the PN chirps of each frame → profile [F, K] (K1b's CPU path)."""
     pin_f32_matmul()
     k = w.shape[1] // 2
     y = x @ w - off
@@ -123,8 +172,9 @@ def fast_time_profile_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
 
 def fast_time_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
                   pn: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K6: (rf [F, PN, K, 2] with (re, im) pairs, profile
-    [F, K]) of flat pair rows x [F·PN, 2·NTS]."""
+    """The exact range FFT: (rf [F, PN, K, 2] with (re, im) pairs, profile
+    [F, K]) of flat pair rows x [F·PN, 2·NTS] at float32 (K6's CPU
+    path)."""
     pin_f32_matmul()
     k = w.shape[1] // 2
     y = x @ w - off
@@ -208,10 +258,11 @@ def fast_time_profile_bf16(x: torch.Tensor, w_hi: torch.Tensor,
 
 def fast_time_profile(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
                       pn: int) -> torch.Tensor:
-    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS], exact
-    float32.
+    """Range profile [F, K] of flat pair rows x [F·PN, 2·NTS], the HIGHEST
+    class.
 
-    CPU tensors: the plain version. CUDA tensors: the K1b kernel.
+    w: the float32 blocked weight. CPU tensors: the exact float32 profile.
+    CUDA tensors: the K1b kernel (six bf16 passes on the tensor cores).
     """
     if x.device.type == "cpu":
         return fast_time_profile_ref(x, w, off, pn)
@@ -235,7 +286,8 @@ def fast_time(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
     """Range FFT [F, PN, K, 2] and profile [F, K] of flat pair rows
     x [F·PN, 2·NTS].
 
-    CPU tensors: the plain version. CUDA tensors: the K6 kernel.
+    CPU tensors: the exact float32 product. CUDA tensors: the K6 kernel
+    (K1b's six passes, the range FFT stored too).
     """
     if x.device.type == "cpu":
         return fast_time_ref(x, w, off, pn)

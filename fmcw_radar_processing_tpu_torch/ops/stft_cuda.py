@@ -29,9 +29,10 @@ by nb_pad:
 recompute=True, float32 dB map, exact — the PSD is never stored:
   nb_pad ≤ 272, K5a :func:`psd_tmax` — K2b's per-tile maxima only (K4a's
       kernel without its store; replaces ``_tmax_kernel``) and K5b
-      :func:`db_rescale_recompute` — the PSD recomputed per column tile by
-      the same arithmetic, then K3's dB map and intensity, bit-equal to
-      K2b → K3's (replaces ``_db_rescale_recompute_kernel``);
+      :func:`db_rescale_recompute` — K3's kernel with each column tile's
+      PSD recomputed by the same arithmetic instead of loaded, then K3's
+      dB map and intensity, bit-equal to K2b → K3's (replaces
+      ``_db_rescale_recompute_kernel``);
   272 < nb_pad ≤ 512, the same two TPU kernels as K4a without its store
       (:func:`psd_tmax_tiled`) and K4b with each bin block's PSD
       recomputed (:func:`db_rescale_recompute_tiled`), bit-equal to
@@ -441,7 +442,8 @@ def db_rescale_recompute(sig: torch.Tensor, nv: int, a2: torch.Tensor,
                          gmax: torch.Tensor, nb: int, num_bins: int,
                          t_pad: int, int_dtype: torch.dtype
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K5b. CPU tensors: the plain version; CUDA tensors: the kernel.
+    """K5b. CPU tensors: the plain version; CUDA tensors: K3's kernel
+    recomputing each tile's PSD from the signal.
 
     sig, nv, a2, t_pad as :func:`psd_phase1`; gmax: one float32 on sig's
     device. Returns (db [nb_pad, t_pad] float32, intensity [num_bins,

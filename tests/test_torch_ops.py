@@ -701,16 +701,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [12, 1000])
+@pytest.mark.parametrize("f", [12, 9, 1000, 0])  # 9: not a whole row tile
 def test_k1_kernel_matches_plain(cfg, cuda_device, f):
-    raw, calib = _k1_inputs(cfg, np.random.default_rng(3), f=f)
-    w, off, x = _k1_port(cfg, raw, calib, cuda_device)
+    """K1b (six bf16 passes on the tensor cores) vs its six-pass plain
+    version (rtol 1e-5 / atol 1e-2) and vs the exact float32 profile (at
+    least 120 dB); F = 0 launches nothing."""
+    raw, calib = _k1_inputs(cfg, np.random.default_rng(3), f=max(f, 1))
+    w, off, x = _k1_port(cfg, raw[:f], calib, cuda_device)
     before = _lib.LAUNCHES["fast_time_profile"]
     got = ftc.fast_time_profile(x, w, off, cfg.pn)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES["fast_time_profile"] == before + 1
-    want = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+    assert _lib.LAUNCHES["fast_time_profile"] == before + int(f > 0)
+    assert got.shape == (f, cfg.range_fft_size)
+    want = ftc.fast_time_profile_b6_ref(x, w, off, cfg.pn)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-2)
+    if f:
+        exact = ftc.fast_time_profile_ref(x, w, off, cfg.pn)
+        assert _snr_db(got.cpu().numpy(), exact.cpu().numpy()) >= 120.0
 
 
 @pytest.mark.cuda
@@ -912,17 +919,22 @@ def test_k4_kernels_equal_k2_k3_at_small_nfft(cuda_device, db_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [12, 9, 1001])  # 9, 1001: not whole row tiles
 def test_k6_kernel_matches_plain(cfg, cuda_device, f):
-    """rf and profile vs the plain version (rtol 1e-5 / atol 1e-2); the
-    profile bit-equal to K1's."""
+    """rf and profile vs the six-pass plain version (rtol 1e-5 / atol
+    1e-2); rf vs the exact float32 product within rtol 1e-5 / atol
+    1e-5·max|rf| (tests/test_fused_chain.py:73-90); the profile bit-equal
+    to K1b's."""
     raw, calib = _k1_inputs(cfg, np.random.default_rng(4), f=f)
     w, off, x = _k1_port(cfg, raw, calib, cuda_device)
     before = _lib.LAUNCHES["fast_time"]
     rf, prof = ftc.fast_time(x, w, off, cfg.pn)
     torch.cuda.synchronize()
     assert _lib.LAUNCHES["fast_time"] == before + 1
-    rf_ref, prof_ref = ftc.fast_time_ref(x, w, off, cfg.pn)
+    rf_ref, prof_ref = ftc.fast_time_b6_ref(x, w, off, cfg.pn)
     torch.testing.assert_close(rf, rf_ref, rtol=1e-5, atol=1e-2)
     torch.testing.assert_close(prof, prof_ref, rtol=1e-5, atol=1e-2)
+    rf_x = ftc.fast_time_ref(x, w, off, cfg.pn)[0]
+    torch.testing.assert_close(rf, rf_x, rtol=1e-5,
+                               atol=1e-5 * float(rf_x.abs().max()))
     assert torch.equal(prof, ftc.fast_time_profile(x, w, off, cfg.pn))
 
 
@@ -956,10 +968,15 @@ def test_k7_kernel_matches_plain(cuda_device, targets):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int_dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("nfft,l,count", [(256, 70_000, 69_000), (512, 4096, 3000)])
+@pytest.mark.parametrize("nfft,l,count", [
+    (256, 70_000, 69_000),  # nb_pad 136: two K5b blocks an SM
+    (430, 70_000, 40_000),  # nb_pad 216: K3 on 64-column tiles, K5b on 128
+    (512, 4096, 3000),  # nb_pad 264: K5b's widest, its tile a partial sample run
+])
 def test_k5_kernels_equal_k2_k3(cuda_device, int_dtype, nfft, l, count):
     """K5a's tmax bit-equal to K2's and K5b's db and intensity to K3's
-    (float32 dB map); each within K2/K3's bounds of its plain version."""
+    (float32 dB map), whatever tile width either takes; each within K2/K3's
+    bounds of its plain version."""
     sig = torch.as_tensor(_signal(l, count), device=cuda_device)
     op = StftOperator.create(**{**OP_KW, "nfft": nfft})
     a2, p, tmax, gmax, db, out = _k4_run(sig, count, op, torch.float32,
