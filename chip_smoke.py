@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
 and holds each against its plain PyTorch version, timing both: K1a (the
@@ -48,18 +48,27 @@ classifier: /process, the dashboard's manifest, /classify alone, eight at
 once (coalesced) and at 1, 8 and 64 images. It prints a kernel table and a
 device line as JSON. Each kernel row has its time (``ms``: the first of
 two timed runs in each turn, right after its plain version; the second,
-right after itself, is ``ms_second_in_turn``), its plain version's time,
+right after itself, is ``ms_second_in_turn``; ``ms_back_to_back`` is the
+time a call takes among 50 made back to back, the kernel time with the
+wrapper's host work hidden — K7's on two copies of its profile in turn,
+so that no call finds it in L2 — and K7's row has torch.profiler's
+device time of its kernel), its plain version's time,
 its launches on the path that drives it, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its operations over the peak
 of their type (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s float32),
 the published H100 SXM figures; the operations of K1a and K1b/K6 are the
-bf16 passes they run (three and six products). Any failed check raises, so
-the exit code
-is non-zero. There is no CPU path: without a CUDA device it exits at once.
+bf16 passes they run (three and six products). With ``--parent DIR``, the
+K1c and K7 of another checkout at DIR (its sources built here, its
+wrappers loaded under other names) are held to this one's outputs and
+timed against them in turns and back to back (parent, change, change,
+parent); their rows then carry both readings. Any failed check raises, so
+the exit code is non-zero. There is no CPU path: without a CUDA device it
+exits at once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -78,6 +87,7 @@ FIDELITY_FRAMES = 1_024  # nfft 16,384: bench.py's 6_fidelity_stft_nextpow2
 SEED = 20261016
 MUTED_SHARE = 0.10
 REPS = 11
+B2B_CALLS = 50  # calls a back-to-back reading averages
 WIDE_REPS = 5  # timing runs at the 65,536-column, nfft 65,536 shape
 # [stream]: bench.py's 5_streaming_8ch (production profile, nfft 256).
 STREAM_CHANNELS = 8
@@ -126,12 +136,176 @@ def time_turns(fns: dict, reps: int = REPS,
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float, float]:
+def time_back_to_back(fn, n: int = B2B_CALLS) -> float:
+    """Milliseconds a call of ``fn`` takes on the card when calls follow
+    each other: after a warmup, one event, ``n`` calls back to back, one
+    event, then the elapsed time over ``n``. The host enqueues ahead of the
+    card, so its work between launches hides and the reading is the
+    kernel's time; a wrapper whose host work outlasts its kernel shows
+    that work instead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def time_pair(kernel, plain, reps: int = REPS) -> tuple[float, float, float, float]:
     """Median CUDA-event milliseconds of a kernel and its plain version, in
-    turns, and the kernel's second-in-turn median (see time_turns)."""
+    turns, the kernel's second-in-turn median (see time_turns), and its
+    back-to-back time (time_back_to_back)."""
     second: dict[str, float] = {}
     t = time_turns({"kernel": kernel, "plain": plain}, reps, second)
-    return t["kernel"], t["plain"], second["kernel"]
+    return t["kernel"], t["plain"], second["kernel"], time_back_to_back(kernel)
+
+
+def alternate(fn, inputs):
+    """A callable that runs ``fn`` on each of ``inputs`` in turn."""
+    state = {"i": 0}
+
+    def run():
+        state["i"] += 1
+        return fn(inputs[state["i"] % len(inputs)])
+
+    return run
+
+
+def profiler_kernel_ms(fn, name_part: str, n: int = 20) -> float | None:
+    """Mean device milliseconds of the kernels whose name holds
+    ``name_part`` over ``n`` calls of ``fn``, as torch.profiler's
+    key_averages() reports them; None when it shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if name_part in e.key:
+            total += getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0.0)
+            count += e.count
+    return total / count / 1e3 if count and total else None
+
+
+def load_parent(root: str):
+    """The K1c and K7 wrappers of another checkout of the port at ``root``
+    (its ``ops/fast_time_cuda.py`` and ``ops/detect_cuda.py``, loaded under
+    other module names), bound to a library built from its
+    ``fast_time_wgmma.cu`` and ``detect.cu`` with this port's nvcc flags.
+    Their launches count nowhere."""
+    import ctypes
+    import importlib.util
+    import types
+
+    from fmcw_radar_processing_tpu_torch.ops import _lib
+
+    pkg = os.path.join(root, "fmcw_radar_processing_tpu_torch")
+    work = tempfile.mkdtemp(prefix="parent_kernels_")
+    nvcc = _lib.find_nvcc()
+    srcs = ("fast_time_wgmma.cu", "detect.cu")
+    objs = [os.path.join(work, src + ".o") for src in srcs]
+    procs = [subprocess.Popen([nvcc, *_lib.NVCC_FLAGS, "-c", "-o", obj,
+                               os.path.join(pkg, "csrc", src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for src, obj in zip(srcs, objs)]
+    for src, proc in zip(srcs, procs):
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"parent build of {src}: {err[-2000:]}")
+    so = os.path.join(work, "libparent_kernels.so")
+    subprocess.run([nvcc, "-shared", "-o", so, *objs], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, args in (("fast_time_profile_bf16_launch", [p, p, p, p, i, i, p]),
+                       ("search_peaks_launch", [p, p, f, i, i, i, p, p, p, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+
+    def launched(name, rc):
+        check(rc == 0, f"parent {name} launch: CUDA error {rc}")
+
+    shim = types.SimpleNamespace(load_kernels=lambda: lib,
+                                 check_operand=_lib.check_operand,
+                                 check_launch=launched)
+    mods = []
+    for name in ("fast_time_cuda", "detect_cuda"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(pkg, "ops", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod._lib = shim
+        mods.append(mod)
+    print(f"[parent] K1c and K7 of {root} built and loaded")
+    return tuple(mods)
+
+
+def parent_turns(what: str, parent_fn, change_fn, inputs, agree) -> dict:
+    """A kernel of the parent checkout against this one on the same
+    inputs: their outputs held to each other by ``agree``, CUDA-event
+    readings in turns (parent, then change, each twice in its turn), then
+    back to back in the order parent, change, change, parent (each call on
+    the next of ``inputs``)."""
+    check(agree(parent_fn(inputs[0]), change_fn(inputs[0])),
+          f"{what}: the parent's output agrees with the change's")
+    second: dict[str, float] = {}
+    first = time_turns({"parent": alternate(parent_fn, inputs),
+                        "change": alternate(change_fn, inputs)}, REPS, second)
+    b2b = [time_back_to_back(alternate(fn, inputs))
+           for fn in (parent_fn, change_fn, change_fn, parent_fn)]
+    print(f"[parent] {what}: outputs agree; back to back parent {b2b[0]:.4f}, "
+          f"change {b2b[1]:.4f}, change {b2b[2]:.4f}, parent {b2b[3]:.4f} ms "
+          f"({B2B_CALLS} calls); in turns first {first['parent']:.4f} (parent) "
+          f"vs {first['change']:.4f} (change), second {second['parent']:.4f} vs "
+          f"{second['change']:.4f} ms (median of {REPS}); back-to-back speed-up "
+          f"{(b2b[0] + b2b[3]) / (b2b[1] + b2b[2]):.3f}x")
+    return {"parent_ms_back_to_back": [b2b[0], b2b[3]],
+            "change_ms_back_to_back": [b2b[1], b2b[2]],
+            "parent_ms": first["parent"], "parent_ms_second_in_turn": second["parent"],
+            "change_ms": first["change"], "change_ms_second_in_turn": second["change"]}
+
+
+def k7_widths_check(dtc, dev, frames: int = FRAMES) -> None:
+    """K7 at K 128, 512 and 1024 on profiles of ``frames`` rows of seeded
+    noise with 1% of bins at one value (peaks that tie): at T 1 and 3 with
+    the production gate and at T 3 with an empty gate (min_distance above
+    the range), idx, magnitude and valid equal to the plain version."""
+    from fmcw_radar_processing_tpu_torch import (
+        AlgorithmConfig,
+        RadarConfig,
+        default_device_config,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for k in (128, 512, 1024):
+        prof = torch.rand((frames, k), generator=gen, device=dev) * 400.0
+        prof[torch.rand((frames, k), generator=gen, device=dev) < 0.01] = 600.0
+        r_max = 48.0  # default_device_config's range
+        for t, gate in ((1, {}), (3, {}),
+                        (3, dict(min_distance=r_max + 1.0, max_distance=r_max + 2.0))):
+            c = RadarConfig.create(default_device_config(), AlgorithmConfig.production(
+                range_fft_size=k, max_num_targets=t, **gate))
+            got = dtc.search_peaks_fused(prof, c)
+            want = dtc.search_peaks_fused_ref(prof, c)
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            n_valid = int(got.valid.sum())
+            ok = all(same) and (n_valid == 0 if gate else n_valid > 0)
+            print(f"[parity] K7 search_peaks_fused ({frames}, {k}) T={t}, "
+                  f"{'an empty gate' if gate else 'the production gate'}: idx, "
+                  f"magnitude, valid equal {same}; {n_valid} valid of "
+                  f"{got.valid.numel()} slots {'ok' if ok else 'FAIL'}")
+            check(ok, f"K7 parity at K {k}, T {t}")
+        del prof, got, want
+    torch.cuda.empty_cache()
 
 
 def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -775,7 +949,14 @@ def service_phase(dev, tmp: str, small, artifact: str, reps: int = 3) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one card.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the repo whose K1c and K7 are timed "
+                         "against this one's, in turns, on the same inputs")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
               "card", file=sys.stderr)
@@ -835,20 +1016,43 @@ def main() -> int:
         text = log.read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
-        # K1a, K1c, K1b and K6 are profile_wgmma_kernel<3, false>, <1,
-        # false>, <6, false> and <6, true> (mangled ILi3ELb0EE, ...):
-        # "Function properties for" the name, its stack and spill line,
-        # then "Used".
-        names = {("3", "0"): "K1a", ("1", "0"): "K1c", ("6", "0"): "K1b",
-                 ("6", "1"): "K6"}
+        # K1a, K1b and K6 are profile_wgmma_kernel<3, false>, <6, false> and
+        # <6, true> (mangled ILi3ELb0EE, ...), K1c profile_bf16_tma_kernel<
+        # slices>, K7 search_peaks_kernel<values a lane> at K = 32·values:
+        # "Function properties for" the name, its stack and spill line, then
+        # "Used".
+        def props(pattern):
+            return re.findall(
+                r"Function properties for \S*" + pattern + r"\S*\n[^\n]*?(\d+) "
+                r"bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers([^\n]*)",
+                text)
+
+        names = {("3", "0"): "K1a", ("6", "0"): "K1b", ("6", "1"): "K6"}
         wg = {names.get((p, rf), p + rf): f"{n} registers, {sp} bytes spilled"
-              for p, rf, sp, n in re.findall(
-                  r"Function properties for \S*profile_wgmma_kernelILi(\d)ELb(\d)E"
-                  r"\S*\n[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) "
-                  r"registers", text)}
+              for p, rf, sp, n, _ in props(r"profile_wgmma_kernelILi(\d)ELb(\d)E")}
+        k1c = {f"{64 * int(q)}-bin groups": f"{n} registers, {sp} bytes spilled"
+               for q, sp, n, _ in props(r"profile_bf16_tma_kernelILi(\d)E")}
+        # ptxas's notes where it had to serialize wgmma (C7514) or add waits.
+        serial = sorted({a + b for a, b in re.findall(
+            r"\(C75\d\d\)[^\n]*(profile_bf16_tma_kernel|profile_wgmma_kernel)"
+            r"(ILi\d+E(?:Lb\dE)?)?", text)})
+        k7 = {f"K {32 * int(v)}": f"{n} registers, {sp} bytes spilled"
+              for v, sp, n, _ in props(r"search_peaks_kernelILi(\d+)E")}
         print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs)} registers "
               f"a thread, {sum(spills)} bytes of spill stores in all; the "
-              f"wgmma fast-time kernels: {wg}")
+              f"wgmma fast-time kernels: {wg}; K1c (the producer warpgroup gives "
+              f"its consumers 160 registers a thread by setmaxnreg): {k1c}; K7: "
+              f"{k7}; wgmma serialized or waits added by ptxas in: "
+              f"{serial or 'none'}")
+    regs_1c, static_1c, dynamic_1c = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+    check(_lib.load_kernels().fast_time_profile_bf16_attributes(
+        ctypes.byref(regs_1c), ctypes.byref(static_1c), ctypes.byref(dynamic_1c)) == 0,
+        "K1c's attributes")
+    print(f"[build] K1c profile_bf16_tma_kernel: {regs_1c.value} registers a "
+          f"thread at launch, shared memory {static_1c.value} bytes static + "
+          f"{dynamic_1c.value} dynamic (cudaFuncGetAttributes)")
+    parent = load_parent(args.parent) if args.parent else None
+    parent_readings: dict[str, dict] = {}
 
     # The main path's input: a 65,536-frame recording, two targets, about
     # 10% of frames muted so that slow-time packing is not the identity.
@@ -892,20 +1096,22 @@ def main() -> int:
           f"plain profile (tol 100 dB) {'ok' if k1a_ok else 'FAIL'}")
     check(k1a_ok, "K1a parity")
     del prof_a, prof_a_ref, err
-    ms1a, plain_ms1a, second1a = time_pair(
+    ms1a, plain_ms1a, second1a, b2b1a = time_pair(
         lambda: ftc.fast_time_profile_b3(x, w_hi, w_lo, off, cfg.pn),
         lambda: ftc.fast_time_profile_b3_ref(x, w_hi, w_lo, off, cfg.pn))
     xb = x.to(torch.bfloat16)
     yard_ms = time_turns({"mm": lambda: torch.matmul(xb, w_hi)})["mm"]
     del xb
-    print(f"[time] K1a kernel {ms1a:.4f} ms (second in its turn {second1a:.4f}), "
+    print(f"[time] K1a kernel {ms1a:.4f} ms (second in its turn {second1a:.4f}, "
+          f"back to back {b2b1a:.4f}), "
           f"plain {plain_ms1a:.4f} ms (median of {REPS}); yardstick, not used "
           f"by the port: one bf16 "
           f"torch.matmul [{rows_x},128]@[128,512] alone {yard_ms:.4f} ms")
     rows.append(dict(name="fast_time_profile_b3", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:151",
-                     max_abs_err=k1a_err, ms=ms1a, plain_ms=plain_ms1a, ms_second=second1a,
+                     max_abs_err=k1a_err, ms=ms1a, plain_ms=plain_ms1a,
+                     ms_second=second1a, ms_b2b=b2b1a,
                      bound=bound(x.numel() * 4 + 2 * w_hi.numel() * 2
                                  + off.numel() * 4 + prof_bytes,
                                  3 * product_ops, "bf16")))
@@ -924,18 +1130,44 @@ def main() -> int:
           f"plain profile (tol 45 dB) {'ok' if k1c_ok else 'FAIL'}")
     check(k1c_ok, "K1c parity")
     del prof_c, prof_c_ref, err
-    ms1c, plain_ms1c, second1c = time_pair(
+    ms1c, plain_ms1c, second1c, b2b1c = time_pair(
         lambda: ftc.fast_time_profile_bf16(x, w_hi, off, cfg.pn),
         lambda: ftc.fast_time_profile_bf16_ref(x, w_hi, off, cfg.pn))
-    print(f"[time] K1c kernel {ms1c:.4f} ms (second in its turn {second1c:.4f}), "
-          f"plain {plain_ms1c:.4f} ms (median of {REPS}); the same yardstick, "
-          f"not used by the port: one bf16 torch.matmul [{rows_x},128]@[128,512] "
-          f"alone {yard_ms:.4f} ms")
+    print(f"[time] K1c kernel {ms1c:.4f} ms (second in its turn {second1c:.4f}, "
+          f"back to back {b2b1c:.4f}), plain {plain_ms1c:.4f} ms (median of "
+          f"{REPS}); the same yardstick, not used by the port: one bf16 "
+          f"torch.matmul [{rows_x},128]@[128,512] alone {yard_ms:.4f} ms")
+    # K1c at K 320, the same x: the 256-bin group in one launch, then the
+    # 64-bin rest in a second, each over every SM; x is read twice.
+    cfg320 = RadarConfig.create(default_device_config(),
+                                AlgorithmConfig.production(range_fft_size=320))
+    w320 = ftc.blocked_weight(cfg320, dev)
+    off320 = ftc.calib_offset(torch.as_tensor(calib, device=dev), w320)
+    w320 = ftc.split_bf16x3(w320)[0]
+    ref320 = ftc.fast_time_profile_bf16_ref(x, w320, off320, cfg.pn)
+    err = (ftc.fast_time_profile_bf16(x, w320, off320, cfg.pn) - ref320).abs()
+    ok320 = bool((err <= 1e-2 + 1e-5 * ref320.abs()).all())
+    b2b320 = time_back_to_back(lambda: ftc.fast_time_profile_bf16(x, w320, off320, cfg.pn))
+    bound320 = bound(x.numel() * 4 + w320.numel() * 2 + off320.numel() * 4
+                     + ref320.numel() * 4, product_ops * 320 / 256, "bf16")
+    print(f"[time] K1c at K 320, launches (bin0, group_bins, groups, blocks) "
+          f"{ftc.k1c_geometry(rows_x, 320, _lib.sm_count(dev))}: max_abs_err "
+          f"{float(err.max()):.6g} vs its plain version (tol 1e-2 + 1e-5·|ref|) "
+          f"{'ok' if ok320 else 'FAIL'}; back to back {b2b320:.4f} ms "
+          f"({b2b320 / b2b1c:.3f}x K 256's), bound {bound320[0]:.4f} ms "
+          f"({bound320[1]}, x read once)")
+    check(ok320, "K1c parity at K 320")
+    del err, ref320, w320, off320
+    if parent is not None:
+        parent_readings["fast_time_profile_bf16"] = parent_turns(
+            "K1c", lambda x_: parent[0].fast_time_profile_bf16(x_, w_hi, off, cfg.pn),
+            lambda x_: ftc.fast_time_profile_bf16(x_, w_hi, off, cfg.pn), (x,),
+            lambda a, b: bool(((a - b).abs() <= 2e-2 + 2e-5 * b.abs()).all()))
     rows.append(dict(name="fast_time_profile_bf16", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
                      max_abs_err=k1c_err, ms=ms1c, plain_ms=plain_ms1c,
-                     ms_second=second1c,
+                     ms_second=second1c, ms_b2b=b2b1c,
                      bound=bound(x.numel() * 4 + w_hi.numel() * 2
                                  + off.numel() * 4 + prof_bytes,
                                  product_ops, "bf16")))
@@ -956,9 +1188,9 @@ def main() -> int:
           f"120 dB) {'ok' if k1_ok else 'FAIL'}")
     check(k1_ok, "K1b parity")
     del err, prof_b6
-    ms, plain_ms, second1b = time_pair(lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
-                                       lambda: ftc.fast_time_profile_b6_ref(x, w, off,
-                                                                            cfg.pn))
+    ms, plain_ms, second1b, b2b1b = time_pair(
+        lambda: ftc.fast_time_profile(x, w, off, cfg.pn),
+        lambda: ftc.fast_time_profile_b6_ref(x, w, off, cfg.pn))
     # The bound of the TPU kernel's arithmetic, six bf16 passes, and beside
     # it the float32 CUDA-core bound of one exact product.
     b6_bound = bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4 + prof_bytes,
@@ -973,7 +1205,8 @@ def main() -> int:
     rows.append(dict(name="fast_time_profile", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:130",
-                     max_abs_err=k1_err, ms=ms, plain_ms=plain_ms, ms_second=second1b,
+                     max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
+                     ms_second=second1b, ms_b2b=b2b1b,
                      snr_db_vs_exact=k1b_snr, bound=b6_bound))
 
     # K6 on the same x: the range FFT [F, PN, K, 2] (2 GiB) and the profile,
@@ -1007,7 +1240,7 @@ def main() -> int:
     prof_exact_host = prof_exact.cpu()
     del prof_exact, prof
     torch.cuda.empty_cache()
-    ms6, plain_ms6, second6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
+    ms6, plain_ms6, second6, b2b6 = time_pair(lambda: ftc.fast_time(x, w, off, cfg.pn),
                                         lambda: ftc.fast_time_b6_ref(x, w, off, cfg.pn))
     rf_bytes = rows_x * k_bins * 2 * 4
     b6_bound6 = bound(x.numel() * 4 + w.numel() * 4 + off.numel() * 4 + prof_bytes
@@ -1020,7 +1253,8 @@ def main() -> int:
     rows.append(dict(name="fast_time", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/fast_time_wgmma.cu",
                      replaces="fmcw_radar_processing_tpu/ops/fast_time_pallas.py:35",
-                     max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6, ms_second=second6,
+                     max_abs_err=k6_err, ms=ms6, plain_ms=plain_ms6,
+                     ms_second=second6, ms_b2b=b2b6,
                      snr_db_vs_exact=k6_snr, bound=b6_bound6))
     torch.cuda.empty_cache()
 
@@ -1040,17 +1274,37 @@ def main() -> int:
               f"{same}; {n_valid} valid of {got.valid.numel()} slots "
               f"{'ok' if all(same) else 'FAIL'}")
         check(all(same) and 0 < n_valid < got.valid.numel(), "K7 parity")
-    ms7, plain_ms7, second7 = time_pair(lambda: dtc.search_peaks_fused(prof6, cfg),
-                               lambda: dtc.search_peaks_fused_ref(prof6, cfg))
-    print(f"[time] K7 kernel {ms7:.4f} ms, plain {plain_ms7:.4f} ms "
-          f"(T=1, median of {REPS})")
+    del got, want
+    k7_widths_check(dtc, dev)
+    ms7, plain_ms7, second7, _ = time_pair(lambda: dtc.search_peaks_fused(prof6, cfg),
+                                           lambda: dtc.search_peaks_fused_ref(prof6, cfg))
+    # Back to back on two copies of the profile in turn (2 × 64 MiB, more
+    # than the 50 MB L2), so no launch finds its input in L2.
+    prof6_copy = prof6.clone()
+    b2b7 = time_back_to_back(alternate(lambda p: dtc.search_peaks_fused(p, cfg),
+                                       (prof6, prof6_copy)))
+    prof7_ms = profiler_kernel_ms(
+        alternate(lambda p: dtc.search_peaks_fused(p, cfg), (prof6, prof6_copy)),
+        "search_peaks_kernel")
+    print(f"[time] K7 kernel {ms7:.4f} ms (second in its turn {second7:.4f}), "
+          f"back to back {b2b7:.4f} (two copies in turn), plain {plain_ms7:.4f} "
+          f"ms (T=1, median of {REPS}); torch.profiler device time of the "
+          f"kernel: {'not measured (no device time)' if prof7_ms is None else prof7_ms}"
+          " ms")
+    if parent is not None:
+        parent_readings["search_peaks_fused"] = parent_turns(
+            "K7", lambda p: parent[1].search_peaks_fused(p, cfg),
+            lambda p: dtc.search_peaks_fused(p, cfg), (prof6, prof6_copy),
+            lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b)))
+    del prof6_copy
     rows.append(dict(name="search_peaks_fused", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/detect.cu",
                      replaces="fmcw_radar_processing_tpu/ops/detect_pallas.py:29",
-                     max_abs_err=k7_err, ms=ms7, plain_ms=plain_ms7, ms_second=second7,
+                     max_abs_err=k7_err, ms=ms7, plain_ms=plain_ms7,
+                     ms_second=second7, ms_b2b=b2b7, profiler_ms=prof7_ms,
                      bound=bound(prof6.numel() * 4 + prof6.shape[0] * (4 + 4 + 1),
                                  3.0 * prof6.numel(), "f32")))
-    del prof6, got, want
+    del prof6
     torch.cuda.empty_cache()
 
     # K2a, K2b + K3 on a packed-signal-shaped input: L = F·PN, about 90%
@@ -1170,10 +1424,10 @@ def main() -> int:
     # never calls, one bf16 torch.matmul of the operator [2·nb_pad, 32]
     # (taps zero-padded) and the frames [32, t_pad] (the Hankel matrix of
     # the signal, built beforehand), with its bf16 [2·nb_pad, t_pad] output.
-    ms2a, plain_ms2a, second2a = time_pair(
+    ms2a, plain_ms2a, second2a, b2b2a = time_pair(
         lambda: stc.psd_phase1_b3(sig, nv, a2, nb_pad, t_pad),
         lambda: stc.psd_phase1_b3_ref(sig, nv, a2, nb_pad, t_pad))
-    ms2b, plain_ms2b, second2b = time_pair(
+    ms2b, plain_ms2b, second2b, b2b2b = time_pair(
         lambda: stc.psd_phase1(sig, nv, a2, nb_pad, t_pad),
         lambda: stc.psd_phase1_ref(sig, nv, a2, nb_pad, t_pad))
     a_bf = torch.nn.functional.pad(a2, (0, 12)).to(bf16)
@@ -1186,7 +1440,7 @@ def main() -> int:
     fill_buf = torch.empty((nb_pad, t_pad), device=dev)
     fill2 = time_turns({"fill": lambda: fill_buf.fill_(1.0)})["fill"]
     del fill_buf
-    ms3, plain_ms3, second3 = time_pair(
+    ms3, plain_ms3, second3, b2b3 = time_pair(
         lambda: stc.db_rescale(p, gmax, nb, 1024, bf16, bf16),
         lambda: stc.db_rescale_ref(p, gmax, nb, 1024, bf16, bf16))
     print(f"[time] K2a kernel {ms2a:.4f} ms (second in its turn {second2a:.4f}), "
@@ -1202,7 +1456,7 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_psd_b3.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:134",
                      max_abs_err=k2a_err, ms=ms2a, plain_ms=plain_ms2a,
-                     ms_second=second2a, snr_db_vs_exact=k2a_snr,
+                     ms_second=second2a, ms_b2b=b2b2a, snr_db_vs_exact=k2a_snr,
                      bound=bound(psd_bytes, b3_ops(nv, nb_pad), "bf16"),
                      yardstick_ms=yard2, fill_ms=fill2,
                      library_note=f"{NO_LIBRARY} (yardstick_ms: one bf16 "
@@ -1212,12 +1466,13 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:106",
                      max_abs_err=k2b_err, ms=ms2b, plain_ms=plain_ms2b,
-                     ms_second=second2b,
+                     ms_second=second2b, ms_b2b=b2b2b,
                      bound=bound(psd_bytes, psd_ops(nv, nb_pad), "f32")))
     rows.append(dict(name="db_rescale", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:282",
-                     max_abs_err=k3_err, ms=ms3, plain_ms=plain_ms3, ms_second=second3,
+                     max_abs_err=k3_err, ms=ms3, plain_ms=plain_ms3,
+                     ms_second=second3, ms_b2b=b2b3,
                      bound=bound(nb_pad * t_pad * (4 + 2) + 1024 * t_pad * 2
                                  + 1024 * 12 + 4, db_ops(t_pad, nb_pad), "f32")))
     del p, tmax
@@ -1249,12 +1504,13 @@ def main() -> int:
         errs, ops_ = k4_check(stc, DB_FLOOR, sig, f_count, f_op, int_dtype)
         if int_dtype == torch.float32:
             k4_errs.append(errs)
-            (ms4a, plain_ms4a, second4a), (ms4b, plain_ms4b, second4b) = k4_times(
+            ((ms4a, plain_ms4a, second4a, b2b4a),
+             (ms4b, plain_ms4b, second4b, b2b4b)) = k4_times(
                 stc, f_op.num_bins, ops_, REPS)
             # The share of a first-in-turn reading that is the allocator's:
             # torch.empty of a dB map alone, in turns with K4b's plain version.
             p_f, g_f = ops_[5], ops_[6]
-            al_first, _, al_second = time_pair(
+            al_first, _, al_second, _ = time_pair(
                 lambda: torch.empty_like(p_f),
                 lambda: stc.db_rescale_ref(p_f, g_f, f_op.num_bins, 1024,
                                            torch.float32, torch.float32))
@@ -1281,7 +1537,7 @@ def main() -> int:
                           last_cols=2048)
     k4_errs.append(errs)
     torch.cuda.empty_cache()
-    (wms4a, wplain4a, _), (wms4b, wplain4b, _) = k4_times(stc, w_op.num_bins, ops_,
+    (wms4a, wplain4a, _, _), (wms4b, wplain4b, _, _) = k4_times(stc, w_op.num_bins, ops_,
                                                     WIDE_REPS)
     print(f"[time] K4a kernel {wms4a:.4f} ms, plain {wplain4a:.4f} ms; "
           f"K4b kernel {wms4b:.4f} ms, plain {wplain4b:.4f} ms "
@@ -1290,7 +1546,7 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:215",
                      max_abs_err=max(e[0] for e in k4_errs), ms=ms4a,
-                     plain_ms=plain_ms4a, ms_second=second4a,
+                     plain_ms=plain_ms4a, ms_second=second4a, ms_b2b=b2b4a,
                      bound=bound(f_len * 4 + 2 * f_nb_pad * 20 * 4
                                  + f_nb_pad * f_t_pad * 4
                                  + -(-f_nb_pad // 128) * f_t_pad // stc.PSD_TILE * 4,
@@ -1299,7 +1555,7 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:238",
                      max_abs_err=max(max(e[1:]) for e in k4_errs), ms=ms4b,
-                     plain_ms=plain_ms4b, ms_second=second4b,
+                     plain_ms=plain_ms4b, ms_second=second4b, ms_b2b=b2b4b,
                      bound=bound(f_nb_pad * f_t_pad * (4 + 4) + 1024 * f_t_pad * 4
                                  + 1024 * 12 + 4, db_ops(f_t_pad, f_nb_pad), "f32")))
     del sig, ops_
@@ -1733,11 +1989,11 @@ def main() -> int:
     print(f"[time] export nfft 256, float32 dB, bf16 intensity: K2b+K3 "
           f"{export['K2b+K3']:.4f} ms, K5a+K5b {export['K5a+K5b']:.4f} ms, plain "
           f"{export['plain']:.4f} ms (in turns, median of {REPS})")
-    ms5a, plain_ms5a, second5a = time_pair(
+    ms5a, plain_ms5a, second5a, b2b5a = time_pair(
         lambda: stc.psd_tmax(sig, nv, a2, nb_pad, t_pad),
         lambda: stc.psd_tmax_ref(sig, nv, a2, nb_pad, t_pad))
     gmax_r = stc.psd_tmax(sig, nv, a2, nb_pad, t_pad).amax()
-    ms5b, plain_ms5b, second5b = time_pair(
+    ms5b, plain_ms5b, second5b, b2b5b = time_pair(
         lambda: stc.db_rescale_recompute(sig, nv, a2, gmax_r, nb, 1024, t_pad, bf16),
         lambda: stc.db_rescale_recompute_ref(sig, nv, a2, gmax_r, nb, 1024, t_pad,
                                              bf16))
@@ -1747,14 +2003,16 @@ def main() -> int:
     rows.append(dict(name="psd_tmax", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
-                     max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a, ms_second=second5a,
+                     max_abs_err=k5a_err, ms=ms5a, plain_ms=plain_ms5a,
+                     ms_second=second5a, ms_b2b=b2b5a,
                      bound=bound(sig.numel() * 4 + a2.numel() * 4
                                  + t_pad // stc.PSD_TILE * 4,
                                  psd_ops(nv, nb_pad), "f32")))
     rows.append(dict(name="db_rescale_recompute", route="cuda",
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:178",
-                     max_abs_err=k5b_err, ms=ms5b, plain_ms=plain_ms5b, ms_second=second5b,
+                     max_abs_err=k5b_err, ms=ms5b, plain_ms=plain_ms5b,
+                     ms_second=second5b, ms_b2b=b2b5b,
                      bound=bound(sig.numel() * 4 + a2.numel() * 4 + 1024 * 12 + 4
                                  + nb_pad * t_pad * 4 + 1024 * t_pad * 2,
                                  psd_ops(nv, nb_pad) + db_ops(t_pad, nb_pad),
@@ -1806,11 +2064,11 @@ def main() -> int:
     print(f"[time] export nfft {r_op.nfft}, float32 dB, bf16 intensity: K4a+K4b "
           f"{export['K4a+K4b']:.4f} ms, tiled recompute pair "
           f"{export['recompute']:.4f} ms (in turns, median of {REPS})")
-    msta, plain_msta, secondta = time_pair(
+    msta, plain_msta, secondta, b2bta = time_pair(
         lambda: stc.psd_tmax_tiled(sig, nv, r_a2, r_nb_pad, t_pad),
         lambda: stc.psd_tmax_ref(sig, nv, r_a2, r_nb_pad, t_pad))
     gmax_r = stc.psd_tmax_tiled(sig, nv, r_a2, r_nb_pad, t_pad).amax()
-    mstb, plain_mstb, secondtb = time_pair(
+    mstb, plain_mstb, secondtb, b2btb = time_pair(
         lambda: stc.db_rescale_recompute_tiled(sig, nv, r_a2, gmax_r, r_nb, 1024,
                                                t_pad, bf16),
         lambda: stc.db_rescale_recompute_ref(sig, nv, r_a2, gmax_r, r_nb, 1024,
@@ -1823,7 +2081,7 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:158",
                      max_abs_err=kta_err, ms=msta, plain_ms=plain_msta,
-                     ms_second=secondta,
+                     ms_second=secondta, ms_b2b=b2bta,
                      bound=bound(sig.numel() * 4 + r_a2.numel() * 4
                                  + r_blocks * t_pad // stc.PSD_TILE * 4,
                                  psd_ops(nv, r_nb_pad), "f32")))
@@ -1831,7 +2089,7 @@ def main() -> int:
                      source="fmcw_radar_processing_tpu_torch/csrc/stft_export_tiled.cu",
                      replaces="fmcw_radar_processing_tpu/ops/stft_pallas.py:178",
                      max_abs_err=ktb_err, ms=mstb, plain_ms=plain_mstb,
-                     ms_second=secondtb,
+                     ms_second=secondtb, ms_b2b=b2btb,
                      bound=bound(sig.numel() * 4 + r_a2.numel() * 4 + 1024 * 12
                                  + (r_blocks + 1) * 4 + 4
                                  + r_nb_pad * t_pad * 4 + 1024 * t_pad * 2,
@@ -1987,11 +2245,15 @@ def main() -> int:
             name=r["name"], route=r["route"], source=r["source"],
             replaces=r["replaces"], launches=counts[r["name"]], main_path=path,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            ms_second_in_turn=r["ms_second"],
+            ms_second_in_turn=r["ms_second"], ms_back_to_back=r["ms_b2b"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
             library_note=r.get("library_note", NO_LIBRARY),
-            **{k: r[k] for k in ("yardstick_ms", "fill_ms", "snr_db_vs_exact")
-               if k in r}))
+            **{k: r[k] for k in ("yardstick_ms", "fill_ms", "snr_db_vs_exact",
+                                 "profiler_ms") if k in r},
+            **parent_readings.get(r["name"], {})))
+    print(f"[time] back to back ({B2B_CALLS} calls after a warmup), ms: "
+          + ", ".join(f"{r['name']} {r['ms_b2b']:.4f} (bound {r['bound'][0]:.4f})"
+                      for r in rows))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

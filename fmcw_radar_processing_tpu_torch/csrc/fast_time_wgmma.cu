@@ -1,6 +1,7 @@
 // K1a, K1b, K1c and K6 — the fast-time kernels on the tensor cores: fused
-// range DFT, magnitude and max over chirps as bf16 wgmma products, one
-// template on the number of passes (and, for K6, on storing the range FFT).
+// range DFT, magnitude and max over chirps as bf16 wgmma products. K1a, K1b
+// and K6 are one template on the number of passes (and, for K6, on storing
+// the range FFT); K1c, one pass, is a persistent kernel fed by TMA.
 //
 // K1a (three passes) replaces the Pallas kernel
 // ops/fast_time_pallas.py::_profile_kernel_b3 of the JAX package (impl
@@ -42,44 +43,71 @@
 // overlap the products. So the products go to the tensor cores through
 // wgmma, and everything else hides under them.
 //
-// Design. A block owns a slice of 64 bins: 128 columns of W (64 re, then
-// 64 im), its bf16 terms (w_hi and for K1a w_lo; w1, w2, w3 for K1b/K6) 32
-// KiB each, resident in shared memory for the block's life in wgmma's
-// K-major core-matrix layout (8 columns × 8 K values per 128-byte core
-// matrix, no swizzle). Its warpgroups (three; two for six passes, whose
-// fragments need 96 registers) walk 64-row tiles of x (four frames)
-// independently, each with one x buffer (rows padded to 136 floats, so the
-// fragment loads below hit 32 distinct banks). Per 16-deep K step a
-// warpgroup loads its A fragments from shared memory straight into the
+// K1a, K1b, K6: profile_wgmma_kernel. A block owns a slice of 64 bins: 128
+// columns of W (64 re, then 64 im), its bf16 terms (w_hi and w_lo for K1a;
+// w1, w2, w3 for K1b/K6) 32 KiB each, resident in shared memory for the
+// block's life in wgmma's K-major core-matrix layout (8 columns × 8 K values
+// per 128-byte core matrix, no swizzle). Its warpgroups (three; two for six
+// passes, whose fragments need 96 registers) walk 64-row tiles of x (four
+// frames) independently, each with one x buffer (rows padded to 136
+// floats, so the fragment loads hit 32 distinct banks). Per 16-deep K step
+// a warpgroup loads its A fragments from shared memory straight into the
 // register layout of wgmma's A operand, splitting each float pair into bf16
 // pairs on the way, and issues that step's m64n128k16 products into one
 // float32 accumulator (A from registers, B from shared memory), so the
 // split of one step overlaps the products of the previous one. Once all
 // fragments are in registers, cp.async refills the buffer with the
-// warpgroup's next tile while the products and the epilogue run. wgmma and
-// not mma.sync: one warpgroup instruction covers 64 rows × 128 columns,
-// reads B once per instruction for all four warps, and runs
-// asynchronously, so one warpgroup's split and epilogue overlap the
-// others' products.
+// warpgroup's next tile while the products and the epilogue run. The x
+// tiles of the four bin slices are read by four blocks that walk the rows
+// in step, so the second to fourth reads come from L2.
+//
+// K1c: profile_bf16_tma_kernel. One pass is bound by the x read, so x has
+// to cross from HBM once and be converted to bf16 once: a block owns a
+// group of up to 256 bins (all of K at K 256; ⌈K/256⌉ groups for a wider
+// K, the last the 64-multiple remainder, which runs as a second launch
+// with a grid of its own, so that each launch fills the card), its w_hi staged once as four
+// 32 KiB slices in the layout above (128 KiB; each 8 × 8 block of W
+// transposed in registers into 16-byte stores), and the grid is
+// persistent, one block per SM walking 64-row tiles. One producer thread
+// keeps a ring of three 32 KiB stages filled by TMA (cp.async.bulk.tensor,
+// four 32-float boxes a tile in 128-byte swizzle, a full/empty mbarrier
+// pair a stage); three consumer warpgroups take the tiles in turn. A
+// consumer converts its tile's A fragments to bf16 once (32 registers, two
+// 16-byte loads a K step), releases the stage, and reuses them for the
+// group's slices: per slice eight m64n128k16 products, then the epilogue.
+// The epilogue on the CUDA cores is the longest part of a consumer's tile
+// (measured: the kernel without it ran at the x read's pace), so three
+// consumers keep the tensor cores and the copies busy while the others
+// are in theirs; setmaxnreg gives them the producer's registers (160 a
+// thread). The swizzle puts row r's 16-byte chunk c at c ^ (r % 8). Two
+// freedoms of the product make the fragment loads conflict-free: the K
+// order is permuted (lane t's fragment columns 2t, 2t+1, 2t+8, 2t+9 of a K
+// step are the contiguous x columns 4t..4t+3, and W's rows are staged in
+// the same order), and the rows within a warp's frame are permuted (row
+// group g reads x row (g >> 1) | (g & 1) << 2, so the two row groups of a
+// quarter warp sit in opposite halves of the swizzle and its eight 16-byte
+// loads hit 32 banks). The max over the frame's 16 chirps does not see the
+// row order.
+//
 // The accumulator layout puts the re column of a bin (j < 8) and its im
 // column (j + 8) in the same thread, and the 16 rows of one frame in one
-// warp: the epilogue subtracts off, takes re² + im², folds the thread's
-// two rows, finishes the max over the frame's 16 chirps with a transposing
-// shuffle butterfly that leaves each lane two bins, and stores their
-// square roots (a float2; the warp writes its frame's 256-byte profile
-// slice at once). K6's epilogue first stores y: a thread holds (re, im) of
-// bins 8j + 2t and 8j + 2t + 1 for two rows, one 16-byte store each per
-// (j, row), so a warp writes whole 32-byte sectors, eight 64-byte runs per
-// instruction; the offsets are 64-bit (F·PN·K·2 passes 2^31 at 262,144
-// frames). The profile comes from the same registers with or without that
-// store, so K1b's and K6's are bit-equal.
-//
-// The x tiles of the four bin slices are read by four blocks that walk the
-// rows in step, so the second to fourth reads come from L2.
+// warp: the epilogue (profile_epilogue, shared by both kernels) subtracts
+// off, takes re² + im², folds the thread's two rows, finishes the max over
+// the frame's 16 chirps with a transposing shuffle butterfly that leaves
+// each lane two bins, and stores their square roots (a float2; the warp
+// writes its frame's 256-byte profile slice at once). K6's epilogue first
+// stores y: a thread holds (re, im) of bins 8j + 2t and 8j + 2t + 1 for two
+// rows, one 16-byte store each per (j, row), so a warp writes whole 32-byte
+// sectors, eight 64-byte runs per instruction; the offsets are 64-bit
+// (F·PN·K·2 passes 2^31 at 262,144 frames). The profile comes from the same
+// registers with or without that store, so K1b's and K6's are bit-equal.
 
+#include <cuda.h>  // CUtensorMap and its enums (no libcuda: see encode_tiled)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -97,10 +125,10 @@ constexpr int kLbo = 128;
 constexpr int kSbo = (kIn / 8) * kLbo;
 constexpr int kWBytes = kSliceCols * kIn * 2;  // one bf16 slice: 32 KiB
 
-// bf16 terms of W staged: w_hi for one pass, w_hi and w_lo for three, w1,
-// w2, w3 for six.
+// bf16 terms of W staged: w_hi and w_lo for three passes, w1, w2, w3 for
+// six.
 __host__ __device__ constexpr int weight_terms(int passes) {
-  return passes == 6 ? 3 : passes == 3 ? 2 : 1;
+  return passes == 6 ? 3 : 2;
 }
 // Warpgroups a block: three, or two where six passes' fragments would not
 // fit three warpgroups' registers.
@@ -223,7 +251,59 @@ __device__ __forceinline__ float sq_mag(float re, float im) {
   return __fmaf_rn(re, re, __fmul_rn(im, im));
 }
 
-// kPasses 3: K1a (bf16x3 from w_hi/w_lo); 1: K1c (w_hi alone); 6: K1b, or
+// The profile of one 64-bin slice from its accumulator (acc[4j + e]:
+// column 8j + 2t + (e & 1), row g + 8·(e >> 1); j < 8 are re columns of
+// bins 8j + 2t + c, j + 8 their im columns) and its offsets offs[128] (re
+// of the slice's 64 bins, then im): the max over the warp's 16 rows of
+// re² + im² (sqrt is monotonic, so the result is the same), its square
+// root stored for bins 8g + 2t and + 1 at dst (the slice's first bin of
+// the warp's frame) when ``store``. The thread's two rows first, then the
+// eight row groups of the warp by a transposing butterfly — at each of the
+// three steps a lane keeps half of its bins and receives the other lane's
+// maxima of them — which leaves lane (g, t) with bins 8g + 2t + c in 14
+// shuffles instead of 48.
+__device__ __forceinline__ void profile_epilogue(const float (&acc)[64],
+                                                 const float* offs, int g,
+                                                 int t, bool store,
+                                                 float* dst) {
+  float sq[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int b = 8 * j + 2 * t + c;
+      const float ore = offs[b];
+      const float oim = offs[kSliceBins + b];
+      sq[j][c] = fmaxf(sq_mag(acc[4 * j + c] - ore, acc[4 * (j + 8) + c] - oim),
+                       sq_mag(acc[4 * j + 2 + c] - ore,
+                              acc[4 * (j + 8) + 2 + c] - oim));
+    }
+  }
+#pragma unroll
+  for (int step = 0; step < 3; ++step) {
+    const int half = 4 >> step;           // bins kept: 4, 2, 1 j-values
+    const bool upper = (g >> (2 - step)) & 1;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < half) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float lo = sq[q][c];
+          const float hi = sq[q + half][c];
+          const float mine = upper ? hi : lo;
+          const float send = upper ? lo : hi;
+          sq[q][c] = fmaxf(mine, __shfl_xor_sync(0xffffffffu, send, 16 >> step));
+        }
+      }
+    }
+  }
+  if (store) {
+    *reinterpret_cast<float2*>(dst + 8 * g + 2 * t) =
+        make_float2(sqrtf(sq[0][0]), sqrtf(sq[0][1]));
+  }
+}
+
+// kPasses 3: K1a (bf16x3 from w_hi/w_lo); 6: K1b, or
 // with kStoreRf K6 (W split here into three terms; rf [rows, k, 2] stored).
 template <int kPasses, bool kStoreRf>
 __global__ void __launch_bounds__(128 * warpgroups(kPasses), 1)
@@ -232,8 +312,7 @@ profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const __nv_bfloat16* __restrict__ w_lo,
                      const float* __restrict__ off, float* __restrict__ prof,
                      float* __restrict__ rf, int rows, int k, int row_tiles) {
-  static_assert(kPasses == 1 || kPasses == 3 || kPasses == 6,
-                "one bf16 pass, bf16x3 or six passes");
+  static_assert(kPasses == 3 || kPasses == 6, "bf16x3 or six passes");
   static_assert(!kStoreRf || kPasses == 6, "K6 is the six-pass form");
   constexpr int kTerms = weight_terms(kPasses);
   constexpr int kWarpgroups = warpgroups(kPasses);
@@ -341,10 +420,8 @@ profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int q = 0; q < 4; ++q) {
         if constexpr (kPasses == 6) {
           split3_pair(v[q], a1[ks][q], a2[ks][q], a3[ks][q]);
-        } else if constexpr (kPasses == 3) {
-          split_pair(v[q], a1[ks][q], a2[ks][q]);
         } else {
-          a1[ks][q] = bf16_pair(v[q]);
+          split_pair(v[q], a1[ks][q], a2[ks][q]);
         }
       }
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -360,10 +437,8 @@ profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
         wgmma_m64n128k16(acc, a3[ks], desc1 + step, 1);
       } else {
         wgmma_m64n128k16(acc, a1[ks], desc1 + step, scale);
-        if constexpr (kPasses == 3) {
-          wgmma_m64n128k16(acc, a2[ks], desc1 + step, 1);
-          wgmma_m64n128k16(acc, a1[ks], desc2 + step, 1);
-        }
+        wgmma_m64n128k16(acc, a2[ks], desc1 + step, 1);
+        wgmma_m64n128k16(acc, a1[ks], desc2 + step, 1);
       }
     }
     if constexpr (kPasses == 6) {
@@ -386,7 +461,7 @@ profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         fence_reg(a1[ks][q]);
-        if constexpr (kPasses >= 3) fence_reg(a2[ks][q]);
+        fence_reg(a2[ks][q]);
         if constexpr (kPasses == 6) fence_reg(a3[ks][q]);
       }
     }
@@ -410,49 +485,9 @@ profile_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
     }
-    // The max over the frame's 16 rows is taken on squared magnitudes
-    // (sqrt is monotonic, so the result is the same): the thread's two
-    // rows, then the eight row groups of the warp by a transposing
-    // butterfly — at each of the three steps a lane keeps half of its
-    // bins and receives the other lane's maxima of them — which leaves
-    // lane (g, t) with bins 8g + 2t + c in 14 shuffles instead of 48.
-    float sq[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int b = 8 * j + 2 * t + c;
-        const float ore = offs[b];
-        const float oim = offs[kSliceBins + b];
-        sq[j][c] = fmaxf(sq_mag(acc[4 * j + c] - ore, acc[4 * (j + 8) + c] - oim),
-                         sq_mag(acc[4 * j + 2 + c] - ore,
-                                acc[4 * (j + 8) + 2 + c] - oim));
-      }
-    }
-#pragma unroll
-    for (int step = 0; step < 3; ++step) {
-      const int half = 4 >> step;           // bins kept: 4, 2, 1 j-values
-      const bool upper = (g >> (2 - step)) & 1;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (q < half) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float lo = sq[q][c];
-            const float hi = sq[q + half][c];
-            const float mine = upper ? hi : lo;
-            const float send = upper ? lo : hi;
-            sq[q][c] = fmaxf(mine, __shfl_xor_sync(0xffffffffu, send,
-                                                    16 >> step));
-          }
-        }
-      }
-    }
     const int frame = tile * (kRows / kPn) + warp;
-    if ((size_t)frame * kPn < (size_t)rows) {
-      *reinterpret_cast<float2*>(&prof[(size_t)frame * k + k0 + 8 * g + 2 * t]) =
-          make_float2(sqrtf(sq[0][0]), sqrtf(sq[0][1]));
-    }
+    profile_epilogue(acc, offs, g, t, (size_t)frame * kPn < (size_t)rows,
+                     prof + (size_t)frame * k + k0);
   }
 }
 
@@ -483,6 +518,349 @@ int launch_profile(const float* x, const float* w, const __nv_bfloat16* w_hi,
   return (int)cudaGetLastError();
 }
 
+// --- K1c: one bf16 pass, persistent, x by a TMA ring -------------------
+
+constexpr int kGroupSlices = 4;                     // 64-bin slices a group
+constexpr int kGroupBins = kGroupSlices * kSliceBins;  // 256
+constexpr int kStages = 3;                          // x tiles in the ring
+constexpr int kTileBytes = kRows * kIn * 4;         // 32 KiB
+constexpr int kBoxFloats = 32;                      // the 128-byte swizzle span
+constexpr int kBoxBytes = kRows * kBoxFloats * 4;   // 8 KiB: 64 rows × 128 B
+constexpr int kConsumers = 3;                       // consumer warpgroups
+constexpr int kBf16Threads = 128 * (1 + kConsumers);  // and the producer's
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+// Shared memory: the ring (1024-byte aligned stages), W's four slices, the
+// group's offsets, then the full and empty barriers.
+constexpr int kWAt = kStages * kTileBytes;                     // 98,304
+constexpr int kOffAt = kWAt + kGroupSlices * kWBytes;          // 229,376
+constexpr int kBarAt = kOffAt + kGroupSlices * kSliceCols * 4;  // 231,424
+constexpr int kBf16Smem = kBarAt + 2 * kStages * 8;            // 231,472
+static_assert(kBf16Smem <= 232448, "K1c exceeds a block's shared memory");
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
+              "the register split exceeds the SM's file");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One 64-row tile of x into a ring stage: four 32-float boxes (128-byte
+// swizzle), completion counted in bytes on the stage's full barrier. Rows
+// past the end arrive as zeros and count all the same.
+__device__ __forceinline__ void load_x_tile(const CUtensorMap* map,
+                                            uint32_t stage_at, uint32_t full,
+                                            int tile) {
+  mbar_expect_tx(full, kTileBytes);
+#pragma unroll
+  for (int b = 0; b < kIn / kBoxFloats; ++b) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(stage_at + b * kBoxBytes),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(full), "r"(b * kBoxFloats),
+        "r"(tile * kRows)
+        : "memory");
+  }
+}
+
+// The x column that the product's K index kk reads: within each 16-deep K
+// step (j = kk mod 16), fragment columns 2t, 2t+1 (j < 8) and 2t+8, 2t+9
+// (j ≥ 8) of lane t are x columns 4t..4t+3, so a lane's fragment is one
+// 16-byte load.
+__device__ __forceinline__ int x_col(int kk) {
+  return (kk & ~15) + 4 * ((kk & 7) >> 1) + 2 * ((kk >> 3) & 1) + (kk & 1);
+}
+
+// d = a·B over the eight K steps of one slice (B's descriptor desc).
+__device__ __forceinline__ void slice_products(float (&d)[64],
+                                               const uint32_t (&a)[kKSteps][4],
+                                               uint64_t desc) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(d[i]);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    wgmma_m64n128k16(d, a[ks], desc + static_cast<uint64_t>(ks * (2 * kLbo >> 4)),
+                     ks > 0 ? 1 : 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// K1c on groups of kSlices·64 bins. Grid (blocks, groups): blockIdx.y is
+// the bin group (from bin bin0 + blockIdx.y·kSlices·64), blockIdx.x walks
+// the row tiles blockIdx.x + i·gridDim.x, i = 0, 1, ...; tile i goes to ring
+// stage i % 3 and to consumer warpgroup 1 + i % 3, so each consumer has a
+// stage of its own, refilled while it computes. The slice count is a
+// template parameter so that the products and epilogues are straight-line
+// code: where it varied at run time, ptxas serialized the products.
+template <int kSlices>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+profile_bf16_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __nv_bfloat16* __restrict__ w_hi,
+                        const float* __restrict__ off, float* __restrict__ prof,
+                        int rows, int k, int bin0, int row_tiles) {
+  static_assert(kSlices >= 1 && kSlices <= kGroupSlices, "1 to 4 slices");
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int g0 = bin0 + blockIdx.y * kSlices * kSliceBins;  // the group's first bin
+  const int stride = gridDim.x;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t full = smem_addr(smem + kBarAt);  // kStages barriers each
+  const uint32_t empty = full + kStages * 8;
+
+  if (tid == 0) {
+    if (ring & 1023) __trap();  // the swizzle needs 1024-byte aligned stages
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);  // every thread of the consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // The first tiles travel while W is staged.
+    for (int i = 0; i < kStages; ++i) {
+      const int tile = blockIdx.x + i * stride;
+      if (tile < row_tiles) load_x_tile(&xmap, ring + i * kTileBytes, full + 8 * i, tile);
+    }
+  }
+
+  // The group's w_hi, once, in each slice's core-matrix layout with the K
+  // rows in x_col order: per item an 8 × 8 block (eight K rows of eight
+  // columns, eight 16-byte loads) transposed in registers into the eight
+  // columns' 16-byte K runs.
+  constexpr int kItems = (kSliceCols / 8) * (kIn / 8);  // 8 × 8 blocks a slice
+  for (int i = tid; i < kSlices * kItems; i += kBf16Threads) {
+    const int s = i / kItems;
+    const int kb = i % (kIn / 8);               // K rows 8kb..8kb+7
+    const int n8 = (i % kItems) / (kIn / 8) * 8;  // columns n8..n8+7
+    const int b0 = g0 + s * kSliceBins;
+    const int col = n8 < kSliceBins ? b0 + n8 : k + b0 + (n8 - kSliceBins);
+    uint4 rv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      rv[r] = *reinterpret_cast<const uint4*>(w_hi + (size_t)x_col(8 * kb + r) * 2 * k +
+                                              col);
+    }
+    uint8_t* const at = smem + kWAt + s * kWBytes + (n8 / 8) * kSbo + kb * kLbo;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      // Column q of the block: element q of each row, K row r at byte 2r.
+      uint32_t e[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const uint32_t word = (&rv[r].x)[q >> 1];
+        e[r] = (q & 1) ? word >> 16 : word & 0xffffu;
+      }
+      *reinterpret_cast<uint4*>(at + q * 16) =
+          make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16,
+                     e[6] | e[7] << 16);
+    }
+  }
+  float* const offs = reinterpret_cast<float*>(smem + kOffAt);  // [slices][128]
+  for (int i = tid; i < kSlices * kSliceCols; i += kBf16Threads) {
+    const int b0 = g0 + (i / kSliceCols) * kSliceBins;
+    const int c = i % kSliceCols;
+    offs[i] = off[c < kSliceBins ? b0 + c : k + b0 + (c - kSliceBins)];
+  }
+  // W was written by the generic proxy and is read by wgmma (async proxy).
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: one thread refills each stage once its consumer has
+    // released it (the release of tile i − 3 is the empty barrier's
+    // (i / 3)-th phase).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      for (int i = kStages;; ++i) {
+        const int tile = blockIdx.x + i * stride;
+        if (tile >= row_tiles) break;
+        const int stage = i % kStages;
+        mbar_wait(empty + 8 * stage, ((i / kStages) - 1) & 1);
+        load_x_tile(&xmap, ring + stage * kTileBytes, full + 8 * stage, tile);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wtid = tid & 127;
+    const int warp = wtid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;  // accumulator row group
+    const int t = lane & 3;   // thread in group
+    // Row group g reads x rows rg and rg + 8 of the warp's frame; the two
+    // row groups of a quarter warp then sit in opposite halves of the
+    // swizzle (rg % 8 = rg).
+    const int rg = (g >> 1) | ((g & 1) << 2);
+    const int row_at = (warp * 16 + rg) * (kBoxFloats * 4);
+    const uint32_t w_at = smem_addr(smem + kWAt);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = wg - 1;; i += kConsumers) {
+      const int tile = blockIdx.x + i * stride;
+      if (tile >= row_tiles) break;
+      const int stage = i % kStages;
+      mbar_wait(full + 8 * stage, (i / kStages) & 1);
+      // The tile's A fragments in bf16, once: per K step two 16-byte loads
+      // (rows rg and rg + 8, x columns 16ks + 4t..+3) through the swizzle.
+      const uint8_t* xs = smem + stage * kTileBytes + row_at;
+      uint32_t a[kKSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint8_t* p =
+            xs + (ks >> 1) * kBoxBytes + ((((ks & 1) * 4 + t) ^ rg) << 4);
+        const float4 v0 = *reinterpret_cast<const float4*>(p);
+        const float4 v1 = *reinterpret_cast<const float4*>(p + 8 * kBoxFloats * 4);
+        a[ks][0] = bf16_pair(make_float2(v0.x, v0.y));
+        a[ks][1] = bf16_pair(make_float2(v1.x, v1.y));
+        a[ks][2] = bf16_pair(make_float2(v0.z, v0.w));
+        a[ks][3] = bf16_pair(make_float2(v1.z, v1.w));
+      }
+      mbar_arrive(empty + 8 * stage);  // the stage is free for tile i + 3
+
+      // Per slice its eight products, then its epilogue; the other
+      // consumers' products and the copies run meanwhile.
+      const int frame = tile * (kRows / kPn) + warp;
+      const bool store = (size_t)frame * kPn < (size_t)rows;
+      float* const dst = prof + (size_t)frame * k + g0;
+#pragma unroll
+      for (int s = 0; s < kSlices; ++s) {
+        slice_products(acc, a, make_desc(w_at + s * kWBytes));
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int q = 0; q < 64; ++q) fence_reg(acc[q]);
+        profile_epilogue(acc, offs + s * kSliceCols, g, t, store, dst + s * kSliceBins);
+      }
+      // The fragments stay untouched until the last products are done.
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) fence_reg(a[ks][q]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so the library
+// links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiledFn>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// Raises the kernel's dynamic shared-memory limit, once per instantiation
+// and device (bit d of done: device d; a device past 31 sets it each time).
+template <int kSlices>
+cudaError_t allow_smem() {
+  static std::atomic<uint32_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(profile_bf16_tma_kernel<kSlices>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int kSlices>
+int launch_slices(const CUtensorMap& xmap, const __nv_bfloat16* w_hi,
+                  const float* off, float* prof, int rows, int k, int bin0,
+                  int groups, int blocks, int row_tiles, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<kSlices>();
+  if (err != cudaSuccess) return (int)err;
+  profile_bf16_tma_kernel<kSlices><<<dim3(blocks, groups), kBf16Threads, kBf16Smem,
+                                     stream>>>(
+      xmap, w_hi, off, prof, rows, k, bin0, row_tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_groups(int slices, const CUtensorMap& xmap, const __nv_bfloat16* w_hi,
+                  const float* off, float* prof, int rows, int k, int bin0,
+                  int groups, int blocks, int row_tiles, cudaStream_t stream) {
+  switch (slices) {
+    case 1:
+      return launch_slices<1>(xmap, w_hi, off, prof, rows, k, bin0, groups,
+                              blocks, row_tiles, stream);
+    case 2:
+      return launch_slices<2>(xmap, w_hi, off, prof, rows, k, bin0, groups,
+                              blocks, row_tiles, stream);
+    case 3:
+      return launch_slices<3>(xmap, w_hi, off, prof, rows, k, bin0, groups,
+                              blocks, row_tiles, stream);
+    default:
+      return launch_slices<4>(xmap, w_hi, off, prof, rows, k, bin0, groups,
+                              blocks, row_tiles, stream);
+  }
+}
+
+int launch_profile_bf16(const float* x, const __nv_bfloat16* w_hi,
+                        const float* off, float* prof, int rows, int k, int bin0,
+                        int group_bins, int groups, int blocks, void* stream) {
+  if (rows <= 0 || rows % kPn || k <= 0 || k % kSliceBins || bin0 < 0 ||
+      bin0 % kSliceBins || group_bins <= 0 || group_bins % kSliceBins ||
+      group_bins > kGroupBins || groups < 1 || blocks < 1 ||
+      bin0 + (long long)groups * group_bins > k) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap xmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)kIn, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kIn * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxFloats, (cuuint32_t)kRows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_groups(group_bins / kSliceBins, xmap, w_hi, off, prof, rows, k,
+                       bin0, groups, blocks, (rows + kRows - 1) / kRows,
+                       (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // x [rows, 128] f32; w_hi, w_lo [128, 2k] bf16 (blocked, split); off [2k]
@@ -497,13 +875,32 @@ extern "C" int fast_time_profile_b3_launch(const float* x,
                            stream);
 }
 
-// K1c: as above with w_hi alone (one bf16 pass).
+// K1c: x, w_hi, off, prof, rows, k as above, one bf16 pass; one launch of
+// the caller's geometry (ops/fast_time_cuda.py::k1c_geometry): groups bin
+// groups of group_bins bins (a multiple of 64, at most 256) from bin bin0
+// (a multiple of 64), each walked by blocks blocks. x must be 16-byte
+// aligned (the TMA tensor map's rule).
 extern "C" int fast_time_profile_bf16_launch(const float* x,
                                              const __nv_bfloat16* w_hi,
                                              const float* off, float* prof,
-                                             int rows, int k, void* stream) {
-  return launch_profile<1>(x, nullptr, w_hi, nullptr, off, prof, nullptr, rows,
-                           k, stream);
+                                             int rows, int k, int bin0,
+                                             int group_bins, int groups,
+                                             int blocks, void* stream) {
+  return launch_profile_bf16(x, w_hi, off, prof, rows, k, bin0, group_bins,
+                             groups, blocks, stream);
+}
+
+// K1c's registers a thread and shared memory (static, and the dynamic
+// bytes its launch requests) at 256-bin groups, as cudaFuncGetAttributes
+// reports them.
+extern "C" int fast_time_profile_bf16_attributes(int* regs, int* static_smem,
+                                                  int* dynamic_smem) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, profile_bf16_tma_kernel<kGroupSlices>);
+  *regs = a.numRegs;
+  *static_smem = (int)a.sharedSizeBytes;
+  *dynamic_smem = kBf16Smem;
+  return (int)err;
 }
 
 // K1b: six bf16 passes of the float32 blocked weight w [128, 2k] (split in

@@ -15,6 +15,7 @@ reset it and read it back to show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -109,8 +110,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fast_time_profile_launch.restype = i
     lib.fast_time_profile_b3_launch.argtypes = [p, p, p, p, p, i, i, p]
     lib.fast_time_profile_b3_launch.restype = i
-    lib.fast_time_profile_bf16_launch.argtypes = [p, p, p, p, i, i, p]
+    lib.fast_time_profile_bf16_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.fast_time_profile_bf16_launch.restype = i
+    lib.fast_time_profile_bf16_attributes.argtypes = [p, p, p]
+    lib.fast_time_profile_bf16_attributes.restype = i
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,
                                       f, f, f, f, p]
     lib.db_rescale_launch.restype = i
@@ -139,6 +142,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/`` on first use."""
     global _lib
+    if _lib is not None:  # the common case: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is None:
             path = library_path()
@@ -148,6 +153,14 @@ def load_kernels() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """The number of streaming multiprocessors of the CUDA ``device``."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operand(name: str, t, device, dtype) -> None:

@@ -33,9 +33,14 @@ KERNEL_BINS = (128, 256, 512, 1024)  # K the kernel is built for (32·4·2^n)
 
 
 @functools.lru_cache(maxsize=8)
-def _gate(cfg: RadarConfig, device: torch.device) -> torch.Tensor:
-    """The distance gate [K] as float32 (1 inside, 0 outside) on device."""
-    return torch.as_tensor(gate_mask(cfg).astype(np.float32), device=device)
+def _launch_args(cfg: RadarConfig, device: torch.device
+                 ) -> tuple[torch.Tensor, float, int]:
+    """The kernel's config-derived arguments, made once per (config,
+    device): the distance gate [K] as float32 on device (1 inside, 0
+    outside), the float32 threshold and T."""
+    gate = torch.as_tensor(gate_mask(cfg).astype(np.float32), device=device)
+    return (gate, float(np.float32(cfg.algorithm.range_threshold)),
+            cfg.algorithm.max_num_targets)
 
 
 def search_peaks_fused_ref(profile: torch.Tensor,
@@ -72,13 +77,11 @@ def search_peaks_fused(profile: torch.Tensor,
         raise ValueError(f"the peak-search kernel takes K in {KERNEL_BINS}, "
                          f"got {k}")
     _lib.check_operand("profile", profile, profile.device, torch.float32)
-    gate = _gate(cfg, profile.device)
-    t = cfg.algorithm.max_num_targets
-    threshold = float(np.float32(cfg.algorithm.range_threshold))
+    gate, threshold, t = _launch_args(cfg, profile.device)
     idx = torch.empty((f, t), dtype=torch.int32, device=profile.device)
     mag = torch.empty((f, t), dtype=torch.float32, device=profile.device)
     valid = torch.empty((f, t), dtype=torch.bool, device=profile.device)
-    if f == 0:
+    if f == 0 or t == 0:
         return DetectionResult(idx=idx, magnitude=mag, valid=valid)
     stream = torch.cuda.current_stream(profile.device).cuda_stream
     rc = lib.search_peaks_launch(profile.data_ptr(), gate.data_ptr(),

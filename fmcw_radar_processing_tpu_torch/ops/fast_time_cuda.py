@@ -1,6 +1,7 @@
 """K1a, K1b, K1c and K6: fused fast-time range DFT + magnitude + max over
-chirps, all on the tensor cores (``csrc/fast_time_wgmma.cu``, one kernel
-template on the number of bf16 passes).
+chirps, all on the tensor cores (``csrc/fast_time_wgmma.cu``: K1a, K1b and
+K6 one kernel template on the number of bf16 passes, K1c a persistent
+kernel fed by TMA whose launch geometry :func:`k1c_geometry` computes).
 
 Four wrappers:
 
@@ -52,6 +53,30 @@ from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
 KERNEL_PN = 16  # chirps per frame the kernel is built for
 KERNEL_IN = 128  # 2·NTS
 KERNEL_BIN_TILE = 64  # K must be a multiple of this
+K1C_ROW_TILE = 64  # rows of x a K1c tile: four frames
+K1C_GROUP_BINS = 256  # bins one K1c block owns at most
+
+
+def k1c_geometry(rows: int, k: int,
+                 sms: int) -> tuple[tuple[int, int, int, int], ...]:
+    """K1c's launches, each ``(bin0, group_bins, groups, blocks)``, for
+    ``rows`` rows of x, ``k`` bins (a multiple of 64) and ``sms`` SMs.
+
+    Block (b, g) of a launch owns the ``group_bins`` bins from
+    ``bin0 + g·group_bins`` and walks the 64-row tiles ``b, b + blocks,
+    b + 2·blocks, ...`` of x. The 256-bin groups go in one launch and the
+    narrower rest of K in a second, which runs after it on the same stream:
+    each launch has one block per SM in all, and no more blocks than
+    tiles."""
+    row_tiles = -(-rows // K1C_ROW_TILE)
+    full, rest = divmod(k, K1C_GROUP_BINS)
+    launches = []
+    if full:
+        launches.append((0, K1C_GROUP_BINS, full,
+                         max(1, min(row_tiles, sms // full))))
+    if rest:
+        launches.append((k - rest, rest, 1, max(1, min(row_tiles, sms))))
+    return tuple(launches)
 
 
 def _packed_blocked_weight(m) -> np.ndarray:
@@ -249,10 +274,11 @@ def fast_time_profile_bf16(x: torch.Tensor, w_hi: torch.Tensor,
     if rows == 0:
         return prof
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.fast_time_profile_bf16_launch(x.data_ptr(), w_hi.data_ptr(),
-                                           off.data_ptr(), prof.data_ptr(), rows,
-                                           k, stream)
-    _lib.check_launch("fast_time_profile_bf16", rc)
+    for launch in k1c_geometry(rows, k, _lib.sm_count(x.device)):
+        rc = lib.fast_time_profile_bf16_launch(x.data_ptr(), w_hi.data_ptr(),
+                                               off.data_ptr(), prof.data_ptr(),
+                                               rows, k, *launch, stream)
+        _lib.check_launch("fast_time_profile_bf16", rc)
     return prof
 
 

@@ -382,6 +382,7 @@ def _stub_library(monkeypatch):
     monkeypatch.setattr(_lib, "check_operand", lambda *args: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_lib, "sm_count", lambda device: 132)
     return stub
 
 
@@ -577,9 +578,10 @@ def test_fast_time_profile_b3_dispatch_on_device_tensors(monkeypatch, f):
 
 @pytest.mark.parametrize("f", [12, 9, 0])
 def test_fast_time_profile_bf16_dispatch_on_device_tensors(monkeypatch, f):
-    """K1c on a device tensor: one fast_time_profile_bf16 launch (rows, K)
-    with w_hi alone, a [F, K] float32 profile, never the plain version (F =
-    0: no launch); a float32 weight or a ragged frame raises first."""
+    """K1c on a device tensor: one fast_time_profile_bf16 launch (rows, K,
+    then k1c_geometry's first bin, group width, groups and blocks for 132
+    SMs) with w_hi alone, a [F, K] float32 profile, never the plain version
+    (F = 0: no launch); a float32 weight or a ragged frame raises first."""
     stub = _stub_library(monkeypatch)
     monkeypatch.setattr(ftc, "fast_time_profile_bf16_ref", _fail_if_called)
     monkeypatch.setattr(_lib, "check_operand", _check_dtype_only)
@@ -592,7 +594,8 @@ def test_fast_time_profile_bf16_dispatch_on_device_tensors(monkeypatch, f):
     assert prof.shape == (f, 256) and prof.dtype == torch.float32
     if f:
         (name, args), = stub.calls
-        assert name == "fast_time_profile_bf16_launch" and args[4:6] == (f * 16, 256)
+        assert name == "fast_time_profile_bf16_launch"
+        assert args[4:10] == (f * 16, 256, 0, 256, 1, -(-f // 4))
         assert args[1] == w_hi.data_ptr()
     assert _launch_deltas(before) == {
         k: int(k == "fast_time_profile_bf16" and f > 0) for k in before}
@@ -602,6 +605,32 @@ def test_fast_time_profile_bf16_dispatch_on_device_tensors(monkeypatch, f):
         with pytest.raises(ValueError):
             ftc.fast_time_profile_bf16(**kw)
     assert len(stub.calls) == int(f > 0)
+
+
+@pytest.mark.parametrize("k,want", [
+    (320, ((0, 256, 1, 132), (256, 64, 1, 132))),  # the rest after the group
+    (512, ((0, 256, 2, 66),)),  # two groups side by side, half the SMs each
+    (576, ((0, 256, 2, 66), (512, 64, 1, 132))),
+])
+def test_fast_time_profile_bf16_dispatch_per_launch(monkeypatch, k, want):
+    """K1c past K 256 on a device tensor, 4,096 frames (1,024 row tiles):
+    one launch of the 256-bin groups and, where K is not a multiple of 256,
+    one of the rest, each with the whole card's 132 SMs, each counted."""
+    stub = _stub_library(monkeypatch)
+    monkeypatch.setattr(ftc, "fast_time_profile_bf16_ref", _fail_if_called)
+    monkeypatch.setattr(_lib, "check_operand", _check_dtype_only)
+    before = dict(_lib.LAUNCHES)
+    meta = dict(device="meta", dtype=torch.float32)
+    prof = ftc.fast_time_profile_bf16(
+        torch.empty(4096 * 16, 128, **meta),
+        torch.empty(128, 2 * k, device="meta", dtype=torch.bfloat16),
+        torch.empty(2 * k, **meta), 16)
+    assert prof.shape == (4096, k)
+    assert [name for name, _ in stub.calls] == ["fast_time_profile_bf16_launch"] * len(want)
+    assert tuple(args[4:10] for _, args in stub.calls) == tuple(
+        (4096 * 16, k, *launch) for launch in want)
+    assert _launch_deltas(before) == {
+        name: len(want) * (name == "fast_time_profile_bf16") for name in before}
 
 
 def _check_dtype_only(name, t, device, dtype):
