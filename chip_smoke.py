@@ -45,7 +45,15 @@ counted), against the CPU plain path and its own window split, timed per
 window; [classify] VGG16 at 224×224×3 from seeded weights, bf16 against
 float32, timed at batch 1, 8 and 64; [service] the HTTP service with that
 classifier: /process, the dashboard's manifest, /classify alone, eight at
-once (coalesced) and at 1, 8 and 64 images. It prints a kernel table and a
+once (coalesced) and at 1, 8 and 64 images. Then [train] the classifier's
+training path: VGG16 at 224×224×3, batch 32, bf16 compute, Adam 1e-4,
+augmentation on the card, with a frozen backbone and in full (step time
+by CUDA events, images/s, peak memory; the frozen backbone bit-unchanged,
+the head moved), one float32 dropout-off step held to the same step on
+the CPU, the JAX test's toy ``run_classifier_experiment`` (its images
+made by the chain, K1a, K4a and K4b counted once a recording; final
+train accuracy at least 0.8; the round trip served from the port's
+artifact) and a two-point robustness sweep. It prints a kernel table and a
 device line as JSON. Each kernel row has its time (``ms``: the first of
 two timed runs in each turn, right after its plain version; the second,
 right after itself, is ``ms_second_in_turn``; ``ms_back_to_back`` is the
@@ -96,6 +104,19 @@ STREAM_WINDOWS = 4  # windows of the 1,024-frame recording
 STREAM_TIMED = 20  # timed steady-state windows per mode and input
 VGG_SHAPE = (224, 224, 3)
 VGG_BATCHES = (1, 8, 64)
+# [train]: the notebook's transfer setup (cell 17: batch 32; cell 19: Adam
+# 1e-4), then the JAX test's toy experiment (test_experiment.py:60-75).
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 10
+TRAIN_CHECK_BATCH = 4  # the float32, dropout-off step held to the CPU
+TOY_EXPERIMENT = dict(images_per_class=10, frames_per_recording=48,
+                      image_size=(64, 64), model="small", epochs=30,
+                      batch_size=7, learning_rate=1e-3, augment=False,
+                      render_size=(320, 240))
+# The chain's kernels of the bare AlgorithmConfig at 48 frames (nfft 1,024,
+# nb_pad past 272): K1a, then K4a and K4b, once a recording.
+CHAIN_KERNELS = ("fast_time_profile_b3", "psd_phase1_tiled", "db_rescale_tiled")
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # operations/s by type.
 HBM_BYTES_S = 3.35e12
@@ -946,6 +967,213 @@ def service_phase(dev, tmp: str, small, artifact: str, reps: int = 3) -> dict:
             print(f"[service] POST /classify with {n} image(s): median "
                   f"{out[f'classify_{n}_s']:.4f} s of {reps} (min {min(ts):.4f})")
         print(f"[service] healthz {get(srv.url + 'healthz')}")
+    return out
+
+
+def train_steps(dev, freeze: bool, batch: int = TRAIN_BATCH,
+                warmup: int = TRAIN_WARMUP, timed: int = TRAIN_TIMED) -> dict:
+    """VGG16 at 224×224×3 (bf16 compute, float32 parameters), Adam 1e-4,
+    augmentation on the card: ``warmup`` steps, then ``timed`` steps each
+    between two CUDA events (augmentation, forward, backward, optimizer).
+    Checks finite losses, the frozen backbone bit-unchanged (or, trained,
+    moved) and the head moved."""
+    from fmcw_radar_processing_tpu_torch.models.data import augment_batch
+    from fmcw_radar_processing_tpu_torch.models.train import (
+        TrainConfig,
+        Trainer,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+    trainer = Trainer("vgg16", TrainConfig(learning_rate=1e-4,
+                                           freeze_backbone=freeze,
+                                           batch_size=batch),
+                      input_shape=VGG_SHAPE, device=dev)
+    step = make_train_step(trainer.model, trainer.optimizer)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.rand((batch, *VGG_SHAPE), generator=gen, device=dev)
+    y = (torch.arange(batch, device=dev) % 2).to(torch.float32)
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    def run():
+        return step(augment_batch(trainer.aug_generator, x), y,
+                    trainer.drop_generator)["loss"]
+
+    losses = [run() for _ in range(warmup)]
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
+    for start, stop in events:
+        start.record()
+        losses.append(run())
+        stop.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).float().cpu().numpy()
+    after = trainer.model.state_dict()
+    moved = {k: not torch.equal(v, after[k]) for k, v in before.items()}
+    what = "frozen" if freeze else "full"
+    check(bool(np.isfinite(losses).all()), f"[train] {what}: losses finite")
+    check(all(moved[k] for k in moved if k.startswith("head.")),
+          f"[train] {what}: every head parameter moved")
+    backbone = [moved[k] for k in moved if k.startswith("backbone.")]
+    if freeze:
+        check(not any(backbone), "[train] frozen: backbone bit-unchanged")
+    else:
+        check(all(backbone), "[train] full: every backbone parameter moved")
+    med = statistics.median(ms)
+    n_train = sum(p.numel() for p in trainer.optimizer.params)
+    print(f"[train] VGG16 {VGG_SHAPE} batch {batch}, {what} "
+          f"({n_train:,} trainable parameters): step median {med:.3f} ms "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}; CUDA events, {timed} steps "
+          f"after {warmup}), {batch / (med / 1e3):,.1f} images/s, "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
+          f"GiB of it held before the trainer was built); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; "
+          + ("backbone bit-unchanged, head moved" if freeze
+             else "backbone and head moved"))
+    del trainer, step, x, before, after
+    return {"step_ms": med, "steps_ms": ms, "images_s": batch / (med / 1e3),
+            "max_memory_allocated": peak, "held_before": held,
+            "loss_first": float(losses[0]),
+            "loss_last": float(losses[-1])}
+
+
+def train_card_vs_cpu(dev, batch: int = TRAIN_CHECK_BATCH) -> dict:
+    """One float32 step, dropout off, at ``batch`` on the card and on the
+    CPU from the same parameters and batch (TF32 off). Two float32 sum
+    orders send a few pre-activations to the other side of a ReLU or a
+    max-pool, so the early layers' gradients differ by percent: the CPU's
+    own float32 step at this shape differs from a float64 step by at most
+    2.0e-2 of a leaf's L2 norm, and its Adam step by more than 1e-2·lr on
+    0.6% of the elements (measured on the CPU). Tolerances: loss within
+    1e-5 (relative); each gradient leaf within 5e-2 of its L2 norm; every
+    parameter within 2·lr (Adam's first step is lr·g/(|g| + ε): a gradient
+    near rounding may take the other sign) and at most 2% of them off by
+    more than 1e-2·lr."""
+    from fmcw_radar_processing_tpu_torch.models.train import (
+        TrainConfig,
+        Trainer,
+        make_train_step,
+    )
+
+    lr = 1e-4
+    cfg = TrainConfig(learning_rate=lr, augment=False)
+    card = Trainer("vgg16", cfg, input_shape=VGG_SHAPE, device=dev,
+                   dtype=torch.float32)
+    cpu = Trainer("vgg16", cfg, input_shape=VGG_SHAPE, device="cpu",
+                  dtype=torch.float32)
+    cpu.set_params(card.params)
+    x = np.random.default_rng(SEED + 7).uniform(
+        0, 1, (batch, *VGG_SHAPE)).astype(np.float32)
+    y = (np.arange(batch) % 2).astype(np.float32)
+    out = {}
+    for name, t in (("card", card), ("cpu", cpu)):
+        t.model.head.dropout = 0.0
+        loss = make_train_step(t.model, t.optimizer)(
+            torch.as_tensor(x).to(t.device), torch.as_tensor(y).to(t.device),
+            None)["loss"]
+        out[name] = (float(loss), {k: (p.detach().cpu(), p.grad.cpu())
+                                   for k, p in t.model.named_parameters()})
+    (l_card, s_card), (l_cpu, s_cpu) = out["card"], out["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_l2 = step_max = 0.0
+    far = total = 0
+    for k, (p_cpu, g_cpu) in s_cpu.items():
+        p_card, g_card = s_card[k]
+        grad_l2 = max(grad_l2, float((g_card - g_cpu).norm() / g_cpu.norm()))
+        d = (p_card - p_cpu).abs()
+        step_max = max(step_max, float(d.max()) / lr)
+        far += int((d > 1e-2 * lr).sum())
+        total += d.numel()
+    print(f"[train] one float32 step, dropout off, batch {batch}, card vs CPU: "
+          f"loss {l_card:.7f} vs {l_cpu:.7f} (rel {loss_rel:.3g}, tol 1e-5); "
+          f"gradients at most {grad_l2:.3g} of a leaf's L2 norm apart (tol "
+          f"5e-2); parameters at most {step_max:.3g}·lr apart (tol 2), "
+          f"{far / total:.3%} of them by more than 1e-2·lr (tol 2%)")
+    check(loss_rel <= 1e-5 and grad_l2 <= 5e-2 and step_max <= 2.0 + 1e-3
+          and far <= 2e-2 * total, "[train] card step = CPU step")
+    del card, cpu, out, s_card, s_cpu
+    return {"loss_rel": loss_rel, "grad_l2_rel": grad_l2,
+            "param_over_lr": step_max, "param_far_share": far / total}
+
+
+def train_phase(dev, tmp: str, lib) -> dict:
+    """[train] the classifier's training path on the card: VGG16 steps at
+    full width (frozen backbone and full), the card's step against the
+    CPU's, the JAX test's toy run_classifier_experiment (its images made
+    by the chain: K1a, K4a and K4b counted once a recording; its bar,
+    final train accuracy ≥ 0.8; the round trip served from the port's
+    artifact) and a tiny robustness sweep (two SNR points)."""
+    from fmcw_radar_processing_tpu_torch.models.experiment import (
+        ExperimentConfig,
+        run_classifier_experiment,
+    )
+    from fmcw_radar_processing_tpu_torch.models.robustness import (
+        run_robustness_sweep,
+    )
+
+    print(f"[train] card: {card_line()}")
+    out = {"frozen": train_steps(dev, True), "full": train_steps(dev, False)}
+    out["card_vs_cpu"] = train_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+
+    cfg = ExperimentConfig(**TOY_EXPERIMENT)
+    recordings = 2 * cfg.images_per_class
+    lib.reset_launches()
+    report = run_classifier_experiment(os.path.join(tmp, "experiment"), cfg,
+                                       device=dev)
+    launches = {k: v for k, v in lib.LAUNCHES.items() if v}
+    hist = report["training"]["history"]
+    rt = report["serving_roundtrip"]
+    print(f"[train] toy run_classifier_experiment ({cfg.images_per_class} "
+          f"images a class, {cfg.frames_per_recording} frames, "
+          f"{cfg.image_size}, {cfg.model}, {cfg.epochs} epochs, batch "
+          f"{cfg.batch_size}): generation {report['dataset']['generation_seconds']}"
+          f" s, training {report['training']['seconds']} s "
+          f"({report['device']['step_seconds']} s a step, steady state); "
+          f"final train accuracy {hist[-1]['accuracy']:.4f} (bar 0.8), val "
+          f"{report['val']['accuracy']}, test {report['test']['accuracy']}; "
+          f"round trip {rt['correct']}/{rt['sampled']} served from "
+          f"{os.path.basename(rt['artifact'])}/params.npz; launches {launches} "
+          f"for {recordings} recordings")
+    check(hist[-1]["accuracy"] >= 0.8, "[train] toy experiment: train accuracy >= 0.8")
+    check(rt["sampled"] == 2 and os.path.exists(
+        os.path.join(rt["artifact"], "params.npz")), "[train] served round trip")
+    check(report["device"]["device_kind"] == torch.cuda.get_device_name(dev),
+          "[train] the experiment ran on the card")
+    for name in CHAIN_KERNELS:
+        check(launches.get(name) == recordings,
+              f"[train] {name} launched once a recording")
+    check(set(launches) == set(CHAIN_KERNELS), "[train] no other kernel launched")
+    out["experiment"] = {"generation_s": report["dataset"]["generation_seconds"],
+                         "training_s": report["training"]["seconds"],
+                         "train_accuracy": hist[-1]["accuracy"],
+                         "launches": launches}
+
+    lib.reset_launches()
+    sweep = run_robustness_sweep(
+        os.path.join(tmp, "robustness"), model="small", train_images_per_class=4,
+        test_images_per_class=2, frames_per_recording=48, epochs=2, batch_size=4,
+        image_size=(64, 64), render_size=(320, 240), snr_grid_db=(30.0, 0.0),
+        extra_conditions=False, device=dev)
+    rows = sweep["rows"]
+    row_keys = {"condition", "input_snr_db", "noise_sigma", "amp_scale",
+                "overlap_ratio", "detection_rate", "accuracy", "loss", "n_images"}
+    check(set(sweep) == {"model", "classes", "train_images_per_class",
+                         "test_images_per_class", "epochs", "mixture_augment",
+                         "mixture_frac", "mixture_ratio", "history_tail", "rows",
+                         "break_snr_db", "snr_definition"}
+          and [r["condition"] for r in rows] == ["snr_+30dB", "snr_+0dB"]
+          and all(set(r) == row_keys for r in rows), "[train] sweep report schema")
+    launches = {k: v for k, v in lib.LAUNCHES.items() if v}
+    print("[train] robustness sweep (4 train and 2 test images a class, 48 "
+          "frames, 2 epochs): " + "; ".join(
+              f"{r['condition']} detection rate {r['detection_rate']}, accuracy "
+              f"{r['accuracy']}" for r in rows) + f"; launches {launches}")
+    out["robustness"] = {r["condition"]: r["detection_rate"] for r in rows}
     return out
 
 
@@ -2208,6 +2436,13 @@ def main(argv: list[str] | None = None) -> int:
     try:
         clf = classify_phase(dev, tmp)
         service_phase(dev, tmp, small, clf["artifact"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 9. The classifier's training path.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_phase(dev, tmp, _lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

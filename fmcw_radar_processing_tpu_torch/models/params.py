@@ -101,5 +101,5 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             a = a.transpose(2, 3, 1, 0)
         elif a.ndim == 2:
             a = a.T
-        leaves["/".join([*parents, _PARAM_TO_LEAF[name]])] = np.ascontiguousarray(a)
+        leaves["/".join([*parents, _PARAM_TO_LEAF[name]])] = np.array(a, order="C")
     return unflatten_tree(leaves)

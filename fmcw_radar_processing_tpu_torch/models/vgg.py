@@ -14,7 +14,10 @@ As in the Flax models:
   * the head flattens the features in (H, W, C) order, Flax's NHWC order,
     so Flax weights carry over unchanged (models/params.py).
   * layer names follow Flax's (``backbone.block{b}_conv{c}``,
-    ``head.fc``/``head.out``; ``Conv_0``.. and ``Dense_0``.. in SmallCNN).
+    ``head.fc``/``head.out``; ``Conv_0``.. and ``Dense_0``.. in SmallCNN);
+  * ``forward(x, train=True, generator=g)`` applies dropout with Flax's
+    semantics, its mask drawn from ``g``; the default is the inference
+    forward.
 
 The convolutions and dense layers are plain large products that the JAX
 package leaves to XLA; here they are ``torch.nn.functional`` calls.
@@ -47,6 +50,19 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: in training keep each value with probability
+    1 − rate, drawn from ``generator``, and scale it by 1/(1 − rate);
+    otherwise (or at rate 0) the identity."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class VGGBackbone(nn.Module):
     """Blocks of 3×3 convolutions (padding 1) + ReLU, each block ending in a
     2×2 / 2 max-pool. NCHW in, NCHW out."""
@@ -75,7 +91,8 @@ class VGGBackbone(nn.Module):
 
 class BinaryHead(nn.Module):
     """Flatten (H, W, C order) → Dense(256, relu) → Dropout(0.5) → Dense(1)
-    in float32 (notebook cell 19). NCHW features in, logits [N] out."""
+    in float32 (notebook cell 19). NCHW features in, logits [N] out. The
+    dropout rate is ``dropout`` (an attribute: 0 turns it off)."""
 
     def __init__(self, in_features: int, hidden: int = 256,
                  dropout: float = 0.5, dtype: torch.dtype = torch.bfloat16,
@@ -83,12 +100,14 @@ class BinaryHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.fc = nn.Linear(in_features, hidden, device=device)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.out = nn.Linear(hidden, 1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.permute(0, 2, 3, 1).flatten(1)  # Flax's NHWC flatten order
-        x = self.drop(F.relu(_dense(x, self.fc, self.dtype)))
+        x = _dropout(F.relu(_dense(x, self.fc, self.dtype)), self.dropout,
+                     train, generator)
         return _dense(x, self.out, torch.float32)[..., 0]
 
 
@@ -108,15 +127,18 @@ class VGG16(nn.Module):
         feats = (h >> n) * (w >> n) * self.backbone.blocks[-1][1]
         self.head = BinaryHead(feats, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits [N]; ``train`` turns the head's dropout on, its mask drawn
+        from ``generator``."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        return self.head(self.backbone(x))
+        return self.head(self.backbone(x), train, generator)
 
 
 class SmallCNN(nn.Module):
     """Compact spectrogram classifier (same API as VGG16): four conv +
     max-pool blocks (32, 64, 128, 128 channels), a global mean, Dense(128,
-    relu), Dropout(0.5), Dense(1) in float32."""
+    relu), Dropout(0.5) (the ``dropout`` attribute), Dense(1) in float32."""
 
     CHANNELS = (32, 64, 128, 128)
 
@@ -131,16 +153,18 @@ class SmallCNN(nn.Module):
                             nn.Conv2d(cin, ch, 3, padding=1, device=device))
             cin = ch
         self.Dense_0 = nn.Linear(cin, 128, device=device)
-        self.drop = nn.Dropout(0.5)
+        self.dropout = 0.5
         self.Dense_1 = nn.Linear(128, 1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         for i in range(len(self.CHANNELS)):
             x = F.max_pool2d(_conv_relu(x, getattr(self, f"Conv_{i}"),
                                         self.dtype), 2, 2)
         x = x.mean(dim=(2, 3))
-        x = self.drop(F.relu(_dense(x, self.Dense_0, self.dtype)))
+        x = _dropout(F.relu(_dense(x, self.Dense_0, self.dtype)), self.dropout,
+                     train, generator)
         return _dense(x, self.Dense_1, torch.float32)[..., 0]
 
 
@@ -150,7 +174,7 @@ MODELS = {"vgg16": VGG16, "small": SmallCNN}
 def build_model(name: str, input_shape: tuple[int, int, int],
                 device: torch.device | str = "cuda", **kwargs) -> nn.Module:
     """The model ``name`` ("vgg16" or "small") for ``input_shape`` images,
-    in eval mode (dropout off), on ``device`` (the card unless the caller
+    in eval mode, on ``device`` (the card unless the caller
     asks for "cpu"; "cuda" without a card raises RuntimeError)."""
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")

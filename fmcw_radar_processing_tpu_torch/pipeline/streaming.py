@@ -21,7 +21,7 @@ stream and the next carry are index gathers on the device, so a window
 whose inputs already lie on the device costs no host synchronization.
 
 Not ported: the JAX ``mesh`` argument, which shards the channels over a
-device mesh (ROADMAP.md, Queue 1 item 11).
+device mesh (ROADMAP.md, Queue 1 item 3, the parallel paths).
 """
 
 from __future__ import annotations

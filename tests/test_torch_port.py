@@ -213,20 +213,42 @@ def test_write_json_of_payloads_byte_identical(tmp_path, pretty):
 
 
 def _entry_points(tmp_path):
+    from fmcw_radar_processing_tpu_torch.models.dataset_gen import (
+        generate_micro_doppler_dataset,
+    )
+    from fmcw_radar_processing_tpu_torch.models.experiment import (
+        ExperimentConfig,
+        run_classifier_experiment,
+    )
     from fmcw_radar_processing_tpu_torch.models.infer import (
         SpectrogramClassifier,
         export_classifier,
     )
     from fmcw_radar_processing_tpu_torch.models.params import state_dict_to_flax
+    from fmcw_radar_processing_tpu_torch.models.robustness import run_robustness_sweep
+    from fmcw_radar_processing_tpu_torch.models.train import Trainer
     from fmcw_radar_processing_tpu_torch.models.vgg import build_model
     from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
     from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+    from fmcw_radar_processing_tpu_torch.serve.cli import main as cli_main
 
     shape = (32, 32, 3)
     cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
     params = state_dict_to_flax(build_model("small", shape, "cpu").state_dict())
     art = export_classifier(str(tmp_path / "art"), "small", params, shape,
                             ("calf", "human"))
+    tiny = ExperimentConfig(images_per_class=7, frames_per_recording=16,
+                            image_size=(16, 16), epochs=1, batch_size=4,
+                            render_size=(40, 30))
+    sweep = dict(train_images_per_class=1, test_images_per_class=1,
+                 frames_per_recording=16, epochs=1, image_size=(16, 16),
+                 render_size=(40, 30), snr_grid_db=(20.0,), extra_conditions=False)
+    data = tmp_path / "images"
+    from PIL import Image
+
+    for i, cname in enumerate(("calf", "human")):
+        (data / cname).mkdir(parents=True)
+        Image.new("RGB", (16, 16), (40 * i, 0, 0)).save(data / cname / "a.png")
     return {
         "RadarPipeline": lambda: RadarPipeline(cfg),
         "make_frame_chain": lambda: make_frame_chain(cfg),
@@ -234,6 +256,14 @@ def _entry_points(tmp_path):
             "small", params, shape, ("calf", "human")),
         "SpectrogramClassifier.load": lambda: SpectrogramClassifier.load(art),
         "build_model": lambda: build_model("small", shape),
+        "Trainer": lambda: Trainer("small", input_shape=shape),
+        "generate_micro_doppler_dataset": lambda: generate_micro_doppler_dataset(
+            str(tmp_path / "gen_cuda"), images_per_class=1, frames_per_recording=16),
+        "run_classifier_experiment": lambda: run_classifier_experiment(
+            str(tmp_path / "exp_cuda"), tiny),
+        "run_robustness_sweep": lambda: run_robustness_sweep(
+            str(tmp_path / "rob_cuda"), **sweep),
+        "cli train": lambda: cli_main(["train", "--data-dir", str(data)]),
     }, {
         "RadarPipeline": lambda: RadarPipeline(cfg, device="cpu"),
         "make_frame_chain": lambda: make_frame_chain(cfg, "cpu"),
@@ -242,12 +272,25 @@ def _entry_points(tmp_path):
         "SpectrogramClassifier.load": lambda: SpectrogramClassifier.load(
             art, "cpu"),
         "build_model": lambda: build_model("small", shape, "cpu"),
+        "Trainer": lambda: Trainer("small", input_shape=shape, device="cpu"),
+        "generate_micro_doppler_dataset": lambda: generate_micro_doppler_dataset(
+            str(tmp_path / "gen"), images_per_class=1, frames_per_recording=16,
+            image_size=(40, 30), device="cpu"),
+        "run_classifier_experiment": lambda: run_classifier_experiment(
+            str(tmp_path / "exp"), tiny, device="cpu"),
+        "run_robustness_sweep": lambda: run_robustness_sweep(
+            str(tmp_path / "rob"), **sweep, device="cpu"),
+        "cli train": lambda: cli_main(["train", "--data-dir", str(data),
+                                       "--epochs", "1", "--device", "cpu"]) == 0 or None,
     }
 
 
 @pytest.mark.parametrize("name", ["RadarPipeline", "make_frame_chain",
                                   "SpectrogramClassifier",
-                                  "SpectrogramClassifier.load", "build_model"])
+                                  "SpectrogramClassifier.load", "build_model",
+                                  "Trainer", "generate_micro_doppler_dataset",
+                                  "run_classifier_experiment",
+                                  "run_robustness_sweep", "cli train"])
 def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
     """With no device given an entry point takes "cuda": without a card it
     raises RuntimeError instead of running on the CPU; "cpu" must be asked
