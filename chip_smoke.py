@@ -53,10 +53,20 @@ the head moved), one float32 dropout-off step held to the same step on
 the CPU, the JAX test's toy ``run_classifier_experiment`` (its images
 made by the chain, K1a, K4a and K4b counted once a recording; final
 train accuracy at least 0.8; the round trip served from the port's
-artifact) and a two-point robustness sweep. It prints a kernel table and a
-device line as JSON. Each kernel row has its time (``ms``: the first of
-two timed runs in each turn, right after its plain version; the second,
-right after itself, is ``ms_second_in_turn``; ``ms_back_to_back`` is the
+artifact) and a two-point robustness sweep. Then [parallel] the
+parallel paths of parallel/ through entry.py::dryrun_multichip, each held
+on every rank to the single-device chain: world 1 under NCCL at 65,536
+frames (the dp chain, bit-equal; the sp recording against RadarPipeline;
+a Trainer step), then worlds 2 and 4 under gloo with every rank on the
+one card, at 8,192 frames (dp, tp, pp, the sharded STFT, the sp
+recording, the multihost feed, streaming over the mesh, a Trainer step),
+K1a counted on every rank; the native reader behind
+load_recording_for_chain; a ``process --trace-dir`` trace that names
+K1a's kernel, and the same command in the smoke's own process with K1a
+counted. It prints a kernel table and a device line as JSON. Each
+kernel row has its time (``ms``: the first of two timed runs in each
+turn, right after its plain version; the second, right after itself, is
+``ms_second_in_turn``; ``ms_back_to_back`` is the
 time a call takes among 50 made back to back, the kernel time with the
 wrapper's host work hidden — K7's on two copies of its profile in turn,
 so that no call finds it in L2 — and K7's row has torch.profiler's
@@ -104,6 +114,10 @@ STREAM_WINDOWS = 4  # windows of the 1,024-frame recording
 STREAM_TIMED = 20  # timed steady-state windows per mode and input
 VGG_SHAPE = (224, 224, 3)
 VGG_BATCHES = (1, 8, 64)
+# [parallel]: worlds 2 and 4 run under gloo, which stages every collective
+# through the host; the sp export gathers its [1024, L] float32 intensity
+# on every rank (0.48 GB at 8,192 frames, 3.9 GB at 65,536).
+PAR_FRAMES = 8_192
 # [train]: the notebook's transfer setup (cell 17: batch 32; cell 19: Adam
 # 1e-4), then the JAX test's toy experiment (test_experiment.py:60-75).
 TRAIN_BATCH = 32
@@ -1174,6 +1188,157 @@ def train_phase(dev, tmp: str, lib) -> dict:
               f"{r['condition']} detection rate {r['detection_rate']}, accuracy "
               f"{r['accuracy']}" for r in rows) + f"; launches {launches}")
     out["robustness"] = {r["condition"]: r["detection_rate"] for r in rows}
+    return out
+
+
+def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
+    """[parallel] The parallel paths of parallel/ (entry.py::
+    dryrun_multichip, each checked on every rank against the single-device
+    chain with the JAX dryrun's tolerances). One card, so: world 1 under
+    NCCL on it at the main path's 65,536 frames (the dp chain, bit-equal
+    to make_frame_chain; the sp recording against RadarPipeline; a
+    Trainer step), then worlds 2 and 4 under gloo, every rank on the same
+    card, at PAR_FRAMES frames (every path: dp, tp, pp, the sharded STFT,
+    the sp recording, the multihost feed, streaming over the mesh, a
+    Trainer step). Prints the slowest rank's wall time per path and K1a's
+    launches on each rank. Then the native reader behind
+    load_recording_for_chain, and a ``process --trace-dir`` run whose
+    trace must name K1a's kernel; then the same command in this process,
+    which must launch K1a (its trace is printed, not checked)."""
+    from fmcw_radar_processing_tpu_torch.entry import K1A, dryrun_multichip
+    from fmcw_radar_processing_tpu_torch.io.native_loader import native_available
+    from fmcw_radar_processing_tpu_torch.io.raw_format import (
+        load_recording_for_chain,
+        read_recording,
+    )
+
+    print(f"[parallel] card: {card_line()}")
+    # K1a per rank: once a chain call; streaming runs 2 windows × 2 channels.
+    k1a_per_call = {"dp": 1, "sp": 1, "multihost": 1, "tp": 0, "pp": 0, "stft": 0,
+                    "train": 0, "stream": 4}
+    out = {}
+    # World 1 in this process; worlds 2 and 4 from one spawn of four ranks
+    # (each rank pays its start-up once, then joins the worlds it is in).
+    t0 = time.perf_counter()
+    runs = {1: dryrun_multichip(1, "nccl", dev, recording=(raw, calib),
+                                paths=("train", "dp", "sp"))}
+    walls = {1: time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    runs.update(dryrun_multichip((2, 4), "gloo", dev,
+                                 recording=(raw[:PAR_FRAMES], calib),
+                                 stream_window=STREAM_WINDOW))
+    walls[2] = walls[4] = time.perf_counter() - t0
+    for world, reports in runs.items():
+        backend = "nccl" if world == 1 else "gloo"
+        frames = raw.shape[0] if world == 1 else PAR_FRAMES
+        wall = walls[world]
+        ran = [p for p in reports[0] if isinstance(reports[0][p], dict)]
+        check(all(r["backend"] == backend and r["world"] == world for r in reports),
+              f"[parallel] world {world} ran under {backend}")
+        row = {}
+        for p in ran:
+            per_rank = [r[p]["k1a"] for r in reports]
+            want = k1a_per_call[p]
+            check(per_rank == [want] * world,
+                  f"[parallel] world {world} {p}: K1a launched {per_rank} per rank, "
+                  f"expected {want}")
+            row[p] = {"slowest_rank_s": max(r[p]["seconds"] for r in reports),
+                      "k1a_per_rank": per_rank,
+                      "check_s": max(r[p]["check_s"] for r in reports)}
+        if "sp" in ran:
+            row["sp"]["intensity_max_abs_err_db"] = max(
+                r["sp"]["intensity_max_abs_err_db"] for r in reports)
+        checks = max(r["checks_s"] for r in reports)
+        refs = max(r["references_s"] for r in reports)
+        out[f"world{world}"] = {"backend": backend, "frames": frames,
+                                "wall_s": wall, "checks_s": checks,
+                                "references_s": refs, "paths": row}
+        print(f"[parallel] world {world} ({backend}, {frames} frames, every rank on "
+              f"{torch.cuda.get_device_name(dev)}): all checks passed "
+              f"({checks:.2f} s in the slowest rank's checks, of them {refs:.2f} s "
+              "the single-device chains; "
+              + (f"{wall:.2f} s in all" if world == 1 else
+                 f"worlds 2 and 4 {wall:.2f} s in all, one spawn") + "); "
+              + "; ".join(f"{p} {v['slowest_rank_s']:.4f} s (slowest rank; its "
+                          f"reference and comparison {v['check_s']:.2f} s), K1a "
+                          f"{v['k1a_per_rank']}" for p, v in row.items())
+              + (f"; sp intensity within {row['sp']['intensity_max_abs_err_db']:.2e} "
+                 "dB of RadarPipeline above -120 dB" if "sp" in row else ""))
+
+    # The native streaming reader behind load_recording_for_chain.
+    from fmcw_radar_processing_tpu_torch import (
+        RadarConfig,
+        SyntheticTarget,
+        default_device_config,
+        synthesize_recording,
+        write_recording,
+    )
+
+    cfg = RadarConfig.create(default_device_config())
+    base = os.path.join(tmp, "native")
+    write_recording(base, synthesize_recording(
+        cfg, 256, (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),), seed=SEED))
+    native = native_available()
+    check(native, "[parallel] the native reader builds (g++) on this machine")
+    t0 = time.perf_counter()
+    n_raw, n_cal, _ = load_recording_for_chain(base)
+    native_s = time.perf_counter() - t0
+    rec = read_recording(base)
+    from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+
+    check(n_raw.tobytes() == to_pair(rec.rx1()).tobytes()
+          and np.allclose(n_cal, to_pair(rec.calib_vector(0, cfg.nts)), rtol=1e-6),
+          "[parallel] native reader = the NumPy reader")
+    print(f"[parallel] load_recording_for_chain used the native reader: {native} "
+          f"(256 frames in {native_s * 1e3:.2f} ms, byte-equal to the NumPy reader)")
+
+    # process --trace-dir on the card, in a process of its own: the trace
+    # names K1a's kernel.
+    trace_dir = os.path.join(tmp, "trace")
+    proc = subprocess.run(
+        [sys.executable, "-m", "fmcw_radar_processing_tpu_torch.serve.cli", "process",
+         base, "--output-dir", os.path.join(tmp, "out"), "--trace-dir", trace_dir,
+         "--compact-json"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, "[parallel] process --trace-dir: "
+          + proc.stderr[-2000:])
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    # K1a is profile_wgmma_kernel<3, false>, demangled or not.
+    k1a = [k for k in kernels if re.search(
+        r"profile_wgmma_kernel(ILi3ELb0E|<3, false>)", k)]
+    check(len(files) == 1 and bool(k1a),
+          f"[parallel] the trace names K1a's kernel (kernels: {kernels[:8]})")
+    print(f"[parallel] process --trace-dir wrote {files[0]} ({len(events)} events, "
+          f"{len(kernels)} kernels) naming K1a: {k1a[0][:60]}")
+    out["native_reader"] = native
+    out["trace_k1a"] = k1a[0]
+
+    # The same command inside this process, after the phases above, with
+    # the launch counters reset just before it: K1a must have run (the
+    # CLI's route on the card), whatever this process's trace shows.
+    from fmcw_radar_processing_tpu_torch.ops import _lib
+    from fmcw_radar_processing_tpu_torch.serve import cli
+
+    trace_dir = os.path.join(tmp, "trace_here")
+    _lib.reset_launches()
+    rc = cli.main(["process", base, "--output-dir", os.path.join(tmp, "out_here"),
+                   "--trace-dir", trace_dir, "--compact-json"])
+    torch.cuda.synchronize(dev)
+    launched = _lib.LAUNCHES[K1A]
+    check(rc == 0 and launched >= 1,
+          f"[parallel] process in this process: rc {rc}, K1a launched {launched}")
+    with open(os.path.join(trace_dir, os.listdir(trace_dir)[0])) as fh:
+        here = sorted({e["name"] for e in json.load(fh)["traceEvents"]
+                       if e.get("cat") == "kernel"})
+    named = any(re.search(r"profile_wgmma_kernel(ILi3ELb0E|<3, false>)", k)
+                for k in here)
+    print(f"[parallel] process --trace-dir in this process: K1a launched "
+          f"{launched}; its trace names K1a: {named} ({len(here)} kernels: "
+          f"{[k[:40] for k in here[:8]]})")
+    out["in_process"] = {"k1a_launches": launched, "trace_names_k1a": named}
     return out
 
 
@@ -2443,6 +2608,13 @@ def main(argv: list[str] | None = None) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         train_phase(dev, tmp, _lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10. The parallel paths, the native reader and the profiler trace.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        parallel_phase(dev, raw, calib, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -27,9 +27,9 @@ A recording on disk is the XML config (io/loaders schema) next to the
 (radar_data.xml + radar_data.raw.bin, read_data_from_blob_storage.m:18).
 
 The port's own copy of the JAX package's ``io/raw_format.py``: the same
-container, byte for byte. It keeps the NumPy reader only (no native
-streaming loader); the service pairs the chirps itself
-(serve/handler.py::load_recording).
+container, byte for byte. :func:`load_recording_for_chain` reads through
+the native streaming loader (io/native_loader.py) when it builds, and
+with NumPy otherwise.
 """
 
 from __future__ import annotations
@@ -140,6 +140,35 @@ def write_recording(basepath: str, rec: RawRecording) -> tuple[str, str]:
         fh.write(device_config_to_xml(rec.device))
     write_raw_bin(bin_path, rec)
     return xml_path, bin_path
+
+
+def load_recording_for_chain(basepath: str, rx: int = 0):
+    """Load <base>.{xml,raw.bin} straight into the chain's input layout.
+
+    Prefers the native C++ streaming reader (io/native_loader.py) and falls
+    back to the NumPy reader. Returns (raw_pair [F, PN, NTS, 2] float32,
+    calib_pair [NTS, 2] float32, DeviceConfig).
+    """
+    from fmcw_radar_processing_tpu_torch.io.native_loader import (
+        NativeRecordingReader,
+        native_available,
+    )
+
+    with open(basepath + ".xml", "r", encoding="utf-8") as fh:
+        device = device_config_from_xml(fh.read())
+    if native_available():
+        r = NativeRecordingReader(basepath + ".raw.bin")
+        if (r.pn, r.nts, r.num_rx) != (device.pn, device.nts,
+                                       device.num_rx_antennas):
+            raise ValueError(
+                f"raw.bin header {(r.num_rx, r.pn, r.nts)} disagrees with "
+                f"XML config {(device.num_rx_antennas, device.pn, device.nts)}")
+        raw = r.read_frames(0, r.frame_count, rx=rx)
+        calib = r.calib_vector_pair(rx=rx, nts=device.nts)
+        return raw, calib, device
+    rec = read_recording(basepath)
+    return (to_pair(rec.frames[:, rx]),
+            to_pair(rec.calib_vector(rx, device.nts)), device)
 
 
 def read_recording(basepath: str) -> RawRecording:

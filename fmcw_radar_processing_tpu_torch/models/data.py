@@ -15,10 +15,16 @@ The augmentation is one batched affine warp on the images' device:
 :func:`affine_matrices` composes the seven random draws into one inverse
 map per image as the JAX package does, and :func:`warp` applies it as a
 bilinear gather with Keras' "nearest" fill.
+
+A data-parallel rank holds a slice of each global batch: it hands the
+augmentation (and the classifier's dropout) a :class:`BatchShard`, whose
+draws are made for the whole batch from the shared generator and cut to
+the rank's rows, so the ranks together draw what one process would.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 from typing import Sequence
@@ -28,6 +34,27 @@ import torch
 
 IMAGE_SIZE = (224, 224)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """Draws from ``generator`` for a global batch of ``size`` rows, of
+    which the caller holds the rows from ``start`` on."""
+
+    generator: torch.Generator
+    size: int
+    start: int
+
+
+def rand_rows(generator: torch.Generator | BatchShard | None, shape: tuple,
+              device: torch.device) -> torch.Tensor:
+    """``torch.rand(shape)`` drawn from ``generator``; for a BatchShard,
+    rows [start, start + shape[0]) of the draw for its whole batch."""
+    if isinstance(generator, BatchShard):
+        full = torch.rand((generator.size, *shape[1:]),
+                          generator=generator.generator, device=device)
+        return full[generator.start:generator.start + shape[0]]
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def split_dataset(
@@ -176,7 +203,7 @@ def warp(images: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
 
 
 def augment_batch(
-    generator: torch.Generator,
+    generator: torch.Generator | BatchShard,
     images: torch.Tensor,
     *,
     rotation_deg: float = 20.0,
@@ -187,12 +214,13 @@ def augment_batch(
 ) -> torch.Tensor:
     """Keras-ImageDataGenerator-style random affine augmentation (cell 17),
     batched: one random affine per image of ``images`` [N, H, W, C]
-    float32, drawn from ``generator`` (on the images' device) and applied
-    as one bilinear warp."""
+    float32, drawn from ``generator`` (on the images' device; a
+    BatchShard for a rank's slice of a global batch) and applied as one
+    bilinear warp."""
     n, h, w, _ = images.shape
 
     def uniform(lo, hi):
-        return torch.rand(n, generator=generator, device=images.device) * (hi - lo) + lo
+        return rand_rows(generator, (n,), images.device) * (hi - lo) + lo
 
     theta = torch.deg2rad(uniform(-rotation_deg, rotation_deg))
     ty = uniform(-shift, shift) * h
@@ -201,7 +229,7 @@ def augment_batch(
     zy = uniform(1 - zoom, 1 + zoom)
     zx = uniform(1 - zoom, 1 + zoom)
     if horizontal_flip:
-        flip = (torch.rand(n, generator=generator, device=images.device) < 0.5
+        flip = (rand_rows(generator, (n,), images.device) < 0.5
                 ).to(torch.float32) * -2.0 + 1.0
     else:
         flip = torch.ones(n, device=images.device)

@@ -21,8 +21,18 @@ As in the JAX package:
 
 Augmentation and dropout draw from two ``torch.Generator``s on the
 training device, seeded from ``TrainConfig.seed``; a full-state
-checkpoint keeps both. The data-parallel ``mesh`` of the JAX Trainer is
-not ported (ROADMAP.md, Queue 1 item 3, the parallel paths).
+checkpoint keeps both.
+
+With a ``mesh`` (parallel/mesh.py) the step is data-parallel over its
+``data`` axis, as the JAX Trainer's is: the parameters are replicated
+(every rank initializes them from the same seed), every rank draws the
+same batch order and takes its rows of each global batch (whose size must
+divide by the axis size, as JAX's sharding requires), the augmentation and
+dropout draws are made for the global batch and cut to those rows
+(models/data.py::BatchShard), and the loss, accuracy and gradients are
+all-reduced to their global-batch means before the clip and Adam. A DP
+step is then the one-process step on the global batch, up to the order of
+the gradient sums.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fmcw_radar_processing_tpu_torch.models.data import augment_batch
+from fmcw_radar_processing_tpu_torch.models.data import BatchShard, augment_batch
 from fmcw_radar_processing_tpu_torch.models.params import (
     flatten_tree,
     params_from_flax,
@@ -46,6 +56,7 @@ from fmcw_radar_processing_tpu_torch.models.params import (
     unflatten_tree,
 )
 from fmcw_radar_processing_tpu_torch.models.vgg import build_model, init_flax_default_
+from fmcw_radar_processing_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
 
 PARAMS_FILENAME = "params.npz"
@@ -128,19 +139,36 @@ def binary_loss_and_metrics(logits: torch.Tensor, labels: torch.Tensor):
     return loss, acc
 
 
-def make_train_step(model: nn.Module, optimizer: Optimizer):
+def make_train_step(model: nn.Module, optimizer: Optimizer,
+                    mesh: Mesh | None = None):
     """step(images [B,H,W,C], labels [B], dropout generator) ->
     {'loss', 'accuracy'} as device scalars: a forward with dropout on, the
-    backward, then the optimizer. No host synchronization."""
+    backward, then the optimizer. No host synchronization on one process.
+
+    With a ``mesh`` the images and labels are this rank's rows of the
+    global batch (the same count on every rank of the ``data`` axis), and
+    the gradients, loss and accuracy are averaged over the axis (one
+    all-reduce of the flattened gradients) before the optimizer."""
+    n = mesh.shape[DATA_AXIS] if mesh is not None else 1
 
     def step(images: torch.Tensor, labels: torch.Tensor,
-             generator: torch.Generator) -> dict[str, torch.Tensor]:
+             generator: torch.Generator | BatchShard) -> dict[str, torch.Tensor]:
         optimizer.zero_grad()
         logits = model(images, train=True, generator=generator)
         loss, acc = binary_loss_and_metrics(logits, labels)
         loss.backward()
+        loss = loss.detach()
+        if n > 1:
+            grads = [p.grad for p in optimizer.params]
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss[None], acc[None]])
+            flat = mesh.psum(flat, DATA_AXIS) / n
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+            loss, acc = flat[off], flat[off + 1]
         optimizer.step()
-        return {"loss": loss.detach(), "accuracy": acc}
+        return {"loss": loss, "accuracy": acc}
 
     return step
 
@@ -163,7 +191,8 @@ class Trainer:
     such as VGG16's ``blocks`` or ``dtype``) built for ``input_shape`` on
     ``device`` (the card unless the caller asks for "cpu"; "cuda" without
     a card raises RuntimeError), with Flax's default initialization drawn
-    from a generator seeded by ``config.seed``."""
+    from a generator seeded by ``config.seed``. ``mesh`` makes the step
+    data-parallel over its ``data`` axis (the module docstring)."""
 
     def __init__(
         self,
@@ -171,10 +200,12 @@ class Trainer:
         config: TrainConfig | None = None,
         input_shape: tuple[int, int, int] = (224, 224, 3),
         device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
         **model_kwargs,
     ):
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model_name = model_name
         self.input_shape = tuple(input_shape)
         self.model_kwargs = model_kwargs
@@ -186,7 +217,7 @@ class Trainer:
         self.aug_generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.drop_generator = torch.Generator(self.device).manual_seed(seed + 2)
         self.optimizer = make_optimizer(self.config, self.model)
-        self._train_step = make_train_step(self.model, self.optimizer)
+        self._train_step = make_train_step(self.model, self.optimizer, mesh)
         self._eval_step = make_eval_step(self.model)
         self.step = 0
         self.history: list[dict[str, float]] = []
@@ -203,6 +234,23 @@ class Trainer:
         for s in range(max(n // b, 1) if n >= b else 1):
             yield order[s * b : (s + 1) * b]
 
+    def _shard(self, batch_idx: np.ndarray):
+        """(augmentation draws, dropout draws, this rank's rows) of one
+        global batch: the generators and the batch as they are on one
+        process; under a mesh, BatchShards and the rank's contiguous rows
+        (ValueError when the batch does not divide by the data axis)."""
+        n = self.mesh.shape[DATA_AXIS] if self.mesh is not None else 1
+        if n == 1:
+            return self.aug_generator, self.drop_generator, batch_idx
+        b = len(batch_idx)
+        if b % n:
+            raise ValueError(f"global batch {b} not divisible by the data "
+                             f"axis ({n})")
+        start = self.mesh.index(DATA_AXIS) * (b // n)
+        return (BatchShard(self.aug_generator, b, start),
+                BatchShard(self.drop_generator, b, start),
+                batch_idx[start:start + b // n])
+
     def fit(
         self, images: np.ndarray, labels: np.ndarray,
         val: tuple[np.ndarray, np.ndarray] | None = None,
@@ -217,11 +265,12 @@ class Trainer:
             losses, accs = [], []
             t0 = time.perf_counter()
             for batch_idx in self._batches(len(images), rng):
+                aug, drop, batch_idx = self._shard(batch_idx)
                 idx = torch.as_tensor(batch_idx).to(self.device)
                 x, y = x_all[idx], y_all[idx]
                 if self.config.augment:
-                    x = augment_batch(self.aug_generator, x)
-                metrics = self._train_step(x, y, self.drop_generator)
+                    x = augment_batch(aug, x)
+                metrics = self._train_step(x, y, drop)
                 self.step += 1
                 losses.append(float(metrics["loss"]))
                 accs.append(float(metrics["accuracy"]))

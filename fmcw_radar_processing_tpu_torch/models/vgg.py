@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fmcw_radar_processing_tpu_torch.models.data import BatchShard, rand_rows
 from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
 
 # Standard VGG16 configuration: (convs per block, channels).
@@ -51,14 +52,15 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | BatchShard | None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: in training keep each value with probability
-    1 − rate, drawn from ``generator``, and scale it by 1/(1 − rate);
-    otherwise (or at rate 0) the identity."""
+    1 − rate, drawn from ``generator`` (a BatchShard: this rank's rows of
+    the global batch's mask), and scale it by 1/(1 − rate); otherwise (or
+    at rate 0) the identity."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(generator, x.shape, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

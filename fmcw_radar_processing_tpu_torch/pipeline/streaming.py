@@ -20,8 +20,11 @@ processor's device between windows. The left alignment of each channel's
 stream and the next carry are index gathers on the device, so a window
 whose inputs already lie on the device costs no host synchronization.
 
-Not ported: the JAX ``mesh`` argument, which shards the channels over a
-device mesh (ROADMAP.md, Queue 1 item 3, the parallel paths).
+With a ``mesh`` (parallel/mesh.py) the channels shard over its ``data``
+axis, as the JAX processor's do: C must divide by the axis size, each rank
+processes and keeps the state of its own C/n channels, and its results
+stay local; parallel/multihost.py::gather_to_all assembles them. Channels
+are independent, so a window needs no communication.
 """
 
 from __future__ import annotations
@@ -33,17 +36,19 @@ import torch
 
 from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator, psd_db
+from fmcw_radar_processing_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
     make_frame_chain,
     pack_slow_time,
 )
-from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs
+from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, resolve_device
 
 DB_MODES = ("per_window", "running_max")
 
 
 class StreamingWindowResult(NamedTuple):
-    """Per-window outputs, leading axis = channel, on the processor's device."""
+    """Per-window outputs, leading axis = channel (this rank's channels
+    under a mesh), on the processor's device."""
 
     waterfall: torch.Tensor  # [C, F, K]
     range: torch.Tensor  # [C, T, F] NaN-filled
@@ -58,21 +63,33 @@ class StreamingWindowResult(NamedTuple):
 
 
 class StreamingProcessor:
-    """Stateful multi-channel streaming processor on one device.
+    """Stateful multi-channel streaming processor on ``device`` (the card
+    unless the caller asks for "cpu").
 
     window_frames: frames per processing window per channel.
     db_mode: "per_window" or "running_max" (see the module docstring).
+    mesh: shards the ``channels`` over its ``data`` axis (ValueError when
+    they do not divide by its size); None processes them all here.
     """
 
     def __init__(self, cfg: RadarConfig, channels: int, window_frames: int,
-                 device: torch.device | str, nfft: int = 256,
-                 db_mode: str = "per_window"):
+                 device: torch.device | str = "cuda", nfft: int = 256,
+                 db_mode: str = "per_window", mesh: Mesh | None = None):
         if db_mode not in DB_MODES:
             raise ValueError(f"unknown db_mode {db_mode!r}")
+        n = mesh.shape[DATA_AXIS] if mesh is not None else 1
+        if channels % n:
+            raise ValueError(f"{channels} channels not divisible by the data "
+                             f"axis ({n})")
         self.cfg = cfg
         self.channels = channels
         self.window_frames = window_frames
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.local_channels = channels // n
+        # This rank's channels: [first_channel, first_channel + local_channels).
+        self.first_channel = (mesh.index(DATA_AXIS) * self.local_channels
+                              if mesh is not None else 0)
+        self.device = resolve_device(device)
         self.nfft = nfft
         self.db_mode = db_mode
         a = cfg.algorithm
@@ -84,7 +101,7 @@ class StreamingProcessor:
         self.reset()
 
     def reset(self) -> None:
-        c, dev = self.channels, self.device
+        c, dev = self.local_channels, self.device
         self._carry = torch.zeros((c, self._wl - 1), dtype=torch.float32,
                                   device=dev)
         self._carry_len = torch.zeros((c,), dtype=torch.int32, device=dev)
@@ -94,19 +111,24 @@ class StreamingProcessor:
         """Process one window.
 
         raw: [C, F, PN, 2·NTS] flat pair rows or [C, F, PN, NTS, 2];
-        calib: [C, NTS, 2]. NumPy arrays or tensors (on any device).
+        calib: [C, NTS, 2]. NumPy arrays or tensors (on any device). Under
+        a mesh, either every channel (this rank takes its own) or this
+        rank's C/n channels.
         """
         dev, wl = self.device, self._wl
+        c0, nc = self.first_channel, self.local_channels
+        if raw.shape[0] == self.channels and nc != self.channels:
+            raw, calib = raw[c0:c0 + nc], calib[c0:c0 + nc]
         raw = torch.as_tensor(raw, dtype=torch.float32, device=dev)
         calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
         if raw.ndim == 5:
             raw = raw.reshape(*raw.shape[:3], -1)
-        if raw.shape[0] != self.channels or calib.shape[0] != self.channels:
-            raise ValueError(f"expected {self.channels} channels, got raw "
+        if raw.shape[0] != nc or calib.shape[0] != nc:
+            raise ValueError(f"expected {nc} channels, got raw "
                              f"{tuple(raw.shape)}, calib {tuple(calib.shape)}")
         raw = raw.contiguous()
         outs, mags, counts = [], [], []
-        for c in range(self.channels):
+        for c in range(nc):
             out = self._chain(raw[c], calib[c])
             sig, count = pack_slow_time(out.strongest_chirps, out.detected,
                                         self.cfg.pn)

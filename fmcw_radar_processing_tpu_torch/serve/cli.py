@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch pipeline.
 
     python -m fmcw_radar_processing_tpu_torch.serve.cli synth <base> --frames N
-    python -m fmcw_radar_processing_tpu_torch.serve.cli process <base> [--algo production] [--activity]
+    python -m fmcw_radar_processing_tpu_torch.serve.cli process <base> [--algo production] [--activity] [--trace-dir DIR]
     python -m fmcw_radar_processing_tpu_torch.serve.cli serve-once [--profile production] [--activity]
     python -m fmcw_radar_processing_tpu_torch.serve.cli serve [--port 8060] [--classifier-artifact DIR]
     python -m fmcw_radar_processing_tpu_torch.serve.cli dashboard <data_dir> [--port 8050]
@@ -19,6 +19,7 @@ versions of the kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -32,9 +33,23 @@ def cmd_process(args) -> int:
         render_spectrogram_png,
     )
     from fmcw_radar_processing_tpu_torch.serve.handler import load_recording
-    from fmcw_radar_processing_tpu_torch.utils.observe import NullTimer, StageTimer
+    from fmcw_radar_processing_tpu_torch.utils.observe import (
+        NullTimer,
+        StageTimer,
+        trace,
+    )
 
     timer = StageTimer() if args.profile else None
+    if args.trace_dir:
+        try:
+            os.makedirs(args.trace_dir, exist_ok=True)
+        except OSError as e:
+            print(f"cannot create trace dir {args.trace_dir}: "
+                  f"{e.strerror or e}", file=sys.stderr)
+            return 1
+        tracer = trace(args.trace_dir)
+    else:
+        tracer = contextlib.nullcontext()
     raw, calib, device = load_recording(args.base)
     algo = (AlgorithmConfig.production() if args.algo == "production"
             else AlgorithmConfig())
@@ -43,30 +58,33 @@ def cmd_process(args) -> int:
     pipe = RadarPipeline(cfg, filename=name, device=args.device)
     outdir = args.output_dir or "."
     os.makedirs(outdir, exist_ok=True)
-    if args.activity:
-        # One stage, as the JAX CLI times activity mode.
-        with (timer or NullTimer()).stage("activity_batches",
-                                          items=raw.shape[0]):
-            batches = pipe.process_activity(raw, calib)
-        for b in batches:
-            write_json(os.path.join(outdir, b.filename), b.payload,
-                       pretty=not args.compact_json)
-            print(f"wrote {b.filename}")
-    else:
-        out = pipe.process_recording(raw, calib, timer=timer)
-        for fname, payload in out.payloads.items():
-            write_json(os.path.join(outdir, fname), payload,
-                       pretty=not args.compact_json)
-            print(f"wrote {fname}")
-        png = os.path.join(outdir, "spectrogram.png")
-        # Linear-frequency PSD — what surf(T, F, psd) renders
-        # (radar_processing.m:331-340); the JSONs carry the log grid.
-        render_spectrogram_png(png, out.spectrogram_times,
-                               out.spectrogram_linear_freqs,
-                               out.spectrogram_psd_db)
-        print(f"wrote {png}")
+    with tracer:
+        if args.activity:
+            # One stage, as the JAX CLI times activity mode.
+            with (timer or NullTimer()).stage("activity_batches",
+                                              items=raw.shape[0]):
+                batches = pipe.process_activity(raw, calib)
+            for b in batches:
+                write_json(os.path.join(outdir, b.filename), b.payload,
+                           pretty=not args.compact_json)
+                print(f"wrote {b.filename}")
+        else:
+            out = pipe.process_recording(raw, calib, timer=timer)
+            for fname, payload in out.payloads.items():
+                write_json(os.path.join(outdir, fname), payload,
+                           pretty=not args.compact_json)
+                print(f"wrote {fname}")
+            png = os.path.join(outdir, "spectrogram.png")
+            # Linear-frequency PSD — what surf(T, F, psd) renders
+            # (radar_processing.m:331-340); the JSONs carry the log grid.
+            render_spectrogram_png(png, out.spectrogram_times,
+                                   out.spectrogram_linear_freqs,
+                                   out.spectrogram_psd_db)
+            print(f"wrote {png}")
     if timer is not None:
         print(timer.pretty())
+    if args.trace_dir:
+        print(f"profiler trace in {args.trace_dir}")
     return 0
 
 
@@ -338,6 +356,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-stage timings and throughput")
     pp.add_argument("--compact-json", action="store_true",
                     help="write compact (non-pretty) JSON payloads — smaller and much faster")
+    pp.add_argument("--trace-dir",
+                    help="capture a torch.profiler trace (Chrome JSON) into "
+                         "this directory")
     pp.set_defaults(fn=cmd_process)
 
     ps = sub.add_parser("synth", help="generate a synthetic recording")

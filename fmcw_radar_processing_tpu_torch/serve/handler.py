@@ -21,14 +21,13 @@ import time
 from typing import Any, Callable
 
 from fmcw_radar_processing_tpu_torch.config import AlgorithmConfig, RadarConfig
-from fmcw_radar_processing_tpu_torch.io.raw_format import read_recording
+from fmcw_radar_processing_tpu_torch.io.raw_format import load_recording_for_chain
 from fmcw_radar_processing_tpu_torch.io.storage import Storage, get_storage
 from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.spectrogram_image import (
     render_spectrogram_png,
 )
-from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
 
 
 @dataclasses.dataclass
@@ -61,12 +60,11 @@ def _retry(fn: Callable[[], Any], retries: int, backoff: float):
 
 def load_recording(basepath: str):
     """<base>.{xml,raw.bin} → (raw [F, PN, 2·NTS] f32, calib [NTS, 2] f32,
-    DeviceConfig), the rx1 chirps paired in NumPy."""
-    rec = read_recording(basepath)
-    nts = rec.device.nts
-    raw = to_pair(rec.rx1())
-    return (raw.reshape(*raw.shape[:2], 2 * nts),
-            to_pair(rec.calib_vector(0, nts)), rec.device)
+    DeviceConfig): the rx1 chirps by io/raw_format.py::
+    load_recording_for_chain (the native streaming reader when it builds,
+    as the JAX service loads), as flat pair rows."""
+    raw, calib, device = load_recording_for_chain(basepath)
+    return raw.reshape(*raw.shape[:2], 2 * device.nts), calib, device
 
 
 class RadarService:

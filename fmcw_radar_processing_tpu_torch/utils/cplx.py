@@ -9,7 +9,9 @@ Precision: a float32 matmul on an H100 may run in TF32 (about three
 decimal digits) when ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.backends.cudnn.allow_tf32`` is on — the GPU form of the TPU's
 DEFAULT-precision trap. :func:`pin_f32_matmul` turns both off and checks
-it; every contraction here runs at true float32.
+it; every contraction here runs at true float32. On the CPU it also
+settles MKL's vector math (:func:`settle_cpu_math`), whose first threaded
+call in a process could lose precision.
 
 :func:`resolve_device` is how the entry points take their device: the
 card by default, an error rather than the CPU when there is none.
@@ -21,19 +23,46 @@ import numpy as np
 import torch
 
 
+_VML_SETTLED = False
+
+
+def settle_cpu_math() -> None:
+    """Make this process's first call of MKL's vector math library (VML)
+    a single-threaded one, once.
+
+    PyTorch's CPU ``sqrt``, ``exp``, ``log10`` and their kin go through
+    VML on float32. On an Intel Xeon with AVX-512 (torch 2.13, MKL
+    2024.2), the first VML call of a process that ran on two threads after
+    a threaded MKL GEMM now and then (one process in 20 to 40) returned
+    the calling thread's share at about 12-bit accuracy: ``sqrt`` 3.2e-4
+    and ``exp`` 1.5e-4 relative, the same values each time, the other
+    thread's share exact (``tools/vml_first_call_probe.py`` reproduces
+    it). One call on one element first prevented it in every run.
+    """
+    global _VML_SETTLED
+    if not _VML_SETTLED:
+        torch.sqrt(torch.ones(1))
+        _VML_SETTLED = True
+
+
 def resolve_device(device: torch.device | str) -> torch.device:
     """``device`` as a torch.device; raises RuntimeError for a CUDA device
     when no card is available (the entry points default to "cuda" and
-    never fall back to the CPU)."""
+    never fall back to the CPU). A CPU device settles VML first
+    (:func:`settle_cpu_math`)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but "
                            "torch.cuda.is_available() is False")
+    if dev.type == "cpu":
+        settle_cpu_math()
     return dev
 
 
 def pin_f32_matmul() -> None:
-    """Turn TF32 off for matmuls and convolutions, and check that it is off."""
+    """Turn TF32 off for matmuls and convolutions, and check that it is
+    off; settle the CPU's vector math first (:func:`settle_cpu_math`)."""
+    settle_cpu_math()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if (torch.backends.cuda.matmul.allow_tf32

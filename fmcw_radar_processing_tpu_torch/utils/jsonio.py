@@ -23,17 +23,13 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import os
-import subprocess
 import threading
 from typing import Any
 
 import numpy as np
 
-_NATIVE_SRC = os.path.join(
-    os.path.dirname(__file__), "..", "..", "native", "fmcw_json.cpp"
-)
-_NATIVE_BUILD = os.path.join(os.path.dirname(__file__), "..", "build")
+from fmcw_radar_processing_tpu_torch.utils.native_build import build_so
+
 _native_lock = threading.Lock()
 _native_lib: ctypes.CDLL | None | bool = None  # None=untried, False=failed
 
@@ -51,21 +47,7 @@ def _get_native() -> ctypes.CDLL | None:
         if _native_lib is not None:
             return _native_lib
         try:
-            src = os.path.abspath(_NATIVE_SRC)
-            so = os.path.join(_NATIVE_BUILD, "libfmcw_json.so")
-            if not os.path.exists(so) or (
-                os.path.exists(src)
-                and os.path.getmtime(src) > os.path.getmtime(so)
-            ):
-                os.makedirs(_NATIVE_BUILD, exist_ok=True)
-                tmp = f"{so}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                     "-o", tmp],
-                    check=True, capture_output=True, text=True,
-                )
-                os.replace(tmp, so)  # atomic for concurrent builders
-            lib = ctypes.CDLL(so)
+            lib = build_so("fmcw_json.cpp", "libfmcw_json.so")
             lib.fmcw_json_f64_array.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,

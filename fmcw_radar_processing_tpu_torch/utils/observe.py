@@ -1,5 +1,5 @@
-"""Stage timers (wall-clock per pipeline stage, synced to the device) and
-structured event lines.
+"""Stage timers (wall-clock per pipeline stage, synced to the device), a
+profiler trace and structured event lines.
 
 CUDA launches return before the card finishes, so a stage's clock stops
 only after the work it queued has run: :func:`_sync` calls
@@ -128,6 +128,25 @@ class NullTimer:
 
     def observe(self, value: Any) -> Any:
         return value
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the region it wraps: CPU
+    activity, and CUDA activity (kernels, copies) when a card is present,
+    written as a Chrome trace (``trace_<pid>.json``, for chrome://tracing
+    or Perfetto) into ``trace_dir``, which is created if missing."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}.json"))
 
 
 def log_event(event: str, *, stream=None, **fields: Any) -> dict:

@@ -12,6 +12,7 @@ card.
 
 import importlib
 import os
+import runpy
 import sys
 from types import SimpleNamespace
 
@@ -94,6 +95,26 @@ def test_k1_plain_matches_pallas(cfg, seed):
         jnp.asarray(raw), jnp.asarray(calib), cfg, precision="highest"))
     assert _snr_db(got, high) > 80.0
     np.testing.assert_allclose(got, highest, rtol=1e-5, atol=1e-2)
+
+
+def test_cpu_math_is_settled_before_threaded_vml():
+    """The port settles MKL's vector math (one single-threaded call) before
+    its CPU contractions and in its CPU entry points: without that, the
+    first threaded torch.sqrt after a threaded GEMM now and then lost the
+    calling thread's precision (test_k1_plain_matches_pallas[0] failed at
+    two threads). Fresh two-thread processes that settle first must all
+    return exact square roots (tools/vml_first_call_probe.py)."""
+    from fmcw_radar_processing_tpu_torch.utils import cplx
+
+    cplx._VML_SETTLED = False
+    cplx.resolve_device("cpu")
+    assert cplx._VML_SETTLED
+    cplx._VML_SETTLED = False
+    cplx.pin_f32_matmul()
+    assert cplx._VML_SETTLED
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    probe = runpy.run_path(os.path.join(root, "tools", "vml_first_call_probe.py"))
+    assert probe["main"](["--runs", "8", "--jobs", "4", "--settle"]) == 0
 
 
 def _k1a_port(cfg, raw, calib, device="cpu"):

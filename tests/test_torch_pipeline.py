@@ -304,6 +304,7 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     tree = ast.parse(path.read_text())
+    loaders = set()  # modules this file takes load_recording_for_chain from
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods = [(a.name, None) for a in node.names]
@@ -317,8 +318,16 @@ def test_port_imports_no_jax(path):
             # modules: the port keeps its own config, io and jsonio.
             assert mod.split(".")[0] != "fmcw_radar_processing_tpu", (
                 f"{path.name} imports {mod}")
-    # The JAX package's jax-importing loader has no counterpart in the port.
-    assert "load_recording_for_chain" not in path.read_text(), path.name
+            if names and "load_recording_for_chain" in names:
+                loaders.add(mod)
+    # The JAX package's loader imports jax; the port's loader is its own
+    # (io/raw_format.py, over its own native reader), and every file that
+    # uses it takes it from there.
+    assert loaders <= {"fmcw_radar_processing_tpu_torch.io.raw_format"}, loaders
+    if "load_recording_for_chain" in path.read_text() and not loaders:
+        assert path.relative_to(REPO).as_posix() in (
+            "fmcw_radar_processing_tpu_torch/io/raw_format.py",
+            "fmcw_radar_processing_tpu_torch/io/native_loader.py"), path.name
 
 
 _NO_JAX_SCRIPT = r"""

@@ -12,6 +12,7 @@ import inspect
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -56,13 +57,21 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "fmcw_radar_processing_tpu"))
 print("modules", len(names), "bad", bad)
 assert len(names) > 30 and not bad
+new = {port.__name__ + "." + m for m in (
+    "entry", "io.native_loader", "parallel", "parallel.mesh", "parallel.multihost",
+    "parallel.sharded_chain", "parallel.sharded_stft", "parallel.tp_chain",
+    "parallel.pp_chain", "parallel.sp_recording")}
+assert new <= set(names), new - set(names)
+import torch.distributed
+assert not torch.distributed.is_initialized()  # importing starts no group
 """
 
 
 def test_port_and_chip_smoke_load_no_jax_package_module():
-    """Every submodule of the port, and chip_smoke.py, imported in a fresh
-    process: sys.modules then holds no jax and no fmcw_radar_processing_tpu
-    module."""
+    """Every submodule of the port (parallel/, io/native_loader.py and
+    entry.py among them), and chip_smoke.py, imported in a fresh process:
+    sys.modules then holds no jax and no fmcw_radar_processing_tpu module,
+    and no process group was started."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
@@ -228,12 +237,34 @@ def _entry_points(tmp_path):
     from fmcw_radar_processing_tpu_torch.models.robustness import run_robustness_sweep
     from fmcw_radar_processing_tpu_torch.models.train import Trainer
     from fmcw_radar_processing_tpu_torch.models.vgg import build_model
+    from fmcw_radar_processing_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from fmcw_radar_processing_tpu_torch.parallel.pp_chain import (
+        STAGE_AXIS,
+        make_pp_frame_chain,
+    )
+    from fmcw_radar_processing_tpu_torch.parallel.sharded_chain import (
+        make_sharded_frame_chain,
+    )
+    from fmcw_radar_processing_tpu_torch.parallel.sp_recording import (
+        ShardedRecordingPipeline,
+    )
+    from fmcw_radar_processing_tpu_torch.parallel.tp_chain import make_tp_frame_chain
     from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
     from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+    from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
+    from fmcw_radar_processing_tpu_torch.entry import dryrun_multichip, entry
     from fmcw_radar_processing_tpu_torch.serve.cli import main as cli_main
 
     shape = (32, 32, 3)
     cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
+    sp_cfg = tconfig.RadarConfig.create(tconfig.default_device_config(),
+                                        tconfig.AlgorithmConfig(stft_nfft=256))
+    mesh = make_mesh()  # one rank: no process group
+    # A (data 1, stage 2) mesh as one rank of two sees it; the chain's
+    # builder runs no collective.
+    pp_mesh = types.SimpleNamespace(axis_names=(DATA_AXIS, STAGE_AXIS),
+                                    shape={DATA_AXIS: 1, STAGE_AXIS: 2},
+                                    index=lambda axis: 0)
     params = state_dict_to_flax(build_model("small", shape, "cpu").state_dict())
     art = export_classifier(str(tmp_path / "art"), "small", params, shape,
                             ("calf", "human"))
@@ -264,6 +295,15 @@ def _entry_points(tmp_path):
         "run_robustness_sweep": lambda: run_robustness_sweep(
             str(tmp_path / "rob_cuda"), **sweep),
         "cli train": lambda: cli_main(["train", "--data-dir", str(data)]),
+        "make_sharded_frame_chain": lambda: make_sharded_frame_chain(cfg, mesh),
+        "ShardedRecordingPipeline": lambda: ShardedRecordingPipeline(sp_cfg, mesh),
+        "make_tp_frame_chain": lambda: make_tp_frame_chain(cfg, mesh),
+        "make_pp_frame_chain": lambda: make_pp_frame_chain(cfg, pp_mesh),
+        "StreamingProcessor(mesh=...)": lambda: StreamingProcessor(cfg, 2, 4,
+                                                                   mesh=mesh),
+        "Trainer(mesh=...)": lambda: Trainer("small", input_shape=shape, mesh=mesh),
+        "dryrun_multichip": lambda: dryrun_multichip(1, paths=("dp",)),
+        "entry": lambda: entry(),
     }, {
         "RadarPipeline": lambda: RadarPipeline(cfg, device="cpu"),
         "make_frame_chain": lambda: make_frame_chain(cfg, "cpu"),
@@ -282,6 +322,18 @@ def _entry_points(tmp_path):
             str(tmp_path / "rob"), **sweep, device="cpu"),
         "cli train": lambda: cli_main(["train", "--data-dir", str(data),
                                        "--epochs", "1", "--device", "cpu"]) == 0 or None,
+        "make_sharded_frame_chain": lambda: make_sharded_frame_chain(cfg, mesh, "cpu"),
+        "ShardedRecordingPipeline": lambda: ShardedRecordingPipeline(
+            sp_cfg, mesh, device="cpu"),
+        "make_tp_frame_chain": lambda: make_tp_frame_chain(cfg, mesh, "cpu"),
+        "make_pp_frame_chain": lambda: make_pp_frame_chain(cfg, pp_mesh, device="cpu"),
+        "StreamingProcessor(mesh=...)": lambda: StreamingProcessor(
+            cfg, 2, 4, "cpu", mesh=mesh),
+        "Trainer(mesh=...)": lambda: Trainer("small", input_shape=shape,
+                                             device="cpu", mesh=mesh),
+        "dryrun_multichip": lambda: dryrun_multichip(1, device="cpu", frames=8,
+                                                     paths=("dp",)),
+        "entry": lambda: entry("cpu"),
     }
 
 
@@ -290,7 +342,13 @@ def _entry_points(tmp_path):
                                   "SpectrogramClassifier.load", "build_model",
                                   "Trainer", "generate_micro_doppler_dataset",
                                   "run_classifier_experiment",
-                                  "run_robustness_sweep", "cli train"])
+                                  "run_robustness_sweep", "cli train",
+                                  "make_sharded_frame_chain",
+                                  "ShardedRecordingPipeline",
+                                  "make_tp_frame_chain", "make_pp_frame_chain",
+                                  "StreamingProcessor(mesh=...)",
+                                  "Trainer(mesh=...)", "dryrun_multichip",
+                                  "entry"])
 def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path, name):
     """With no device given an entry point takes "cuda": without a card it
     raises RuntimeError instead of running on the CPU; "cpu" must be asked
