@@ -63,7 +63,13 @@ recording, the multihost feed, streaming over the mesh, a Trainer step),
 K1a counted on every rank; the native reader behind
 load_recording_for_chain; a ``process --trace-dir`` trace that names
 K1a's kernel, and the same command in the smoke's own process with K1a
-counted. It prints a kernel table and a device line as JSON. Each
+counted. Then [precision]: the SNR ladder (tools/snr_ladder.py) at
+matmul_precision "default", "high" and "highest" on the card with its
+checks; the production recording under stft_impl="xla" at each precision
+(detections identical, K1a once each, SNR and display-band error against
+"highest", wall time, peak memory); and the default production path
+bit-equal with the precision plumbing bypassed. It prints a kernel
+table and a device line as JSON. Each
 kernel row has its time (``ms``: the first of two timed runs in each
 turn, right after its plain version; the second, right after itself, is
 ``ms_second_in_turn``; ``ms_back_to_back`` is the
@@ -86,6 +92,7 @@ exits at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1342,6 +1349,182 @@ def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def mxu_predicate(fn):
+    """Replace utils/cplx.py::takes_mxu_passes, the one predicate that
+    decides whether a product takes the TPU's pass semantics, for the
+    block: ``lambda t: True`` gives the card's semantics on CPU tensors,
+    ``lambda t: False`` bypasses the precision plumbing (every product the
+    exact float32 ``torch.matmul``)."""
+    from fmcw_radar_processing_tpu_torch.utils import cplx
+
+    real = cplx.takes_mxu_passes
+    cplx.takes_mxu_passes = fn
+    try:
+        yield
+    finally:
+        cplx.takes_mxu_passes = real
+
+
+def precision_phase(dev, raw: np.ndarray, calib: np.ndarray,
+                    present: np.ndarray, lib) -> dict:
+    """[precision] AlgorithmConfig.matmul_precision and rescale_precision on
+    the card ("default" one bf16 pass, "high" three, "highest" exact
+    float32; utils/cplx.py::precision_matmul).
+
+    1. The SNR ladder (tools/snr_ladder.py, the shape of the TPU's
+       SNR_LADDER.json: 256 frames, nfft 256, seed 0) at each precision,
+       one JSON line each: stages 1-3 rise strictly with the pass count;
+       at "highest" they are at least 130 dB and the intensity's display
+       band within 0.001 dB; at "high" that band within 0.005 dB; at
+       "default" stage 1 within 60-72 dB (the TPU's record 66.1).
+    2. RadarPipeline on the main path's recording under
+       AlgorithmConfig.production(stft_impl="xla", matmul_precision=p,
+       rescale_precision=p) for each p, counted: K1a once a recording and
+       no other kernel; detections, ranges and speeds identical across p
+       (those of "highest" equal to the injected frames); against
+       "highest": the waterfall's and the packed slow-time signal's SNR,
+       the intensity's display-band max error; wall time, peak memory.
+    3. AlgorithmConfig.production() (the kernel export, matmul_precision
+       "highest") bit-equal to the same call with the precision plumbing
+       bypassed (:func:`mxu_predicate` False), and the predicate never
+       asked in the first: every product took the exact branch.
+    """
+    from fmcw_radar_processing_tpu_torch import (
+        AlgorithmConfig,
+        RadarConfig,
+        default_device_config,
+    )
+    from fmcw_radar_processing_tpu_torch.entry import K1A
+    from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import pack_slow_time
+    from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+    from fmcw_radar_processing_tpu_torch.tools.snr_ladder import (
+        PRECISIONS,
+        build_ladder,
+    )
+    from fmcw_radar_processing_tpu_torch.utils import cplx
+
+    t_phase = time.perf_counter()
+    out: dict = {"ladder": {}, "recording": {}}
+    stages = ("1_slow_time_snr_db", "2_magnitude_snr_db", "3_psd_linear_snr_db")
+
+    def display(lad):
+        return lad["intensity_bands"]["display_band_ge_-40dB"]["max_abs_err_db"]
+
+    for p in PRECISIONS:
+        t0 = time.perf_counter()
+        lad = build_ladder(frames=256, nfft=256, seed=0, precision=p, device=dev)
+        out["ladder"][p] = lad
+        print(f"[precision] ladder {p} ({time.perf_counter() - t0:.2f} s): "
+              f"{json.dumps(lad)}")
+    lads = out["ladder"]
+    for st in stages:
+        d, h, x = (lads[p][st] for p in PRECISIONS)
+        check(d < h < x, f"[precision] ladder {st} rises with the pass count "
+              f"({d} < {h} < {x})")
+    check(all(lads["highest"][st] >= 130.0 for st in stages),
+          f"[precision] ladder 'highest' stages 1-3 >= 130 dB "
+          f"({[lads['highest'][st] for st in stages]})")
+    check(display(lads["highest"]) <= 0.001,
+          f"[precision] ladder 'highest' display band {display(lads['highest'])} "
+          "dB (tol 0.001)")
+    check(display(lads["high"]) <= 0.005,
+          f"[precision] ladder 'high' display band {display(lads['high'])} dB "
+          "(tol 0.005)")
+    check(60.0 <= lads["default"]["1_slow_time_snr_db"] <= 72.0,
+          f"[precision] ladder 'default' stage 1 "
+          f"{lads['default']['1_slow_time_snr_db']} dB (60-72)")
+    print("[precision] ladder: stages 1-3 dB by precision "
+          + ", ".join(f"{p} {[lads[p][st] for st in stages]} display band "
+                      f"{display(lads[p])} dB" for p in PRECISIONS))
+
+    # 2. The full-width recording through the normal entry point, "highest"
+    # first as the others' reference.
+    ref = None
+    for p in ("highest", "high", "default"):
+        cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production(
+            stft_impl="xla", matmul_precision=p, rescale_precision=p))
+        pipe = RadarPipeline(cfg, device=dev)
+        pipe.process_recording(raw[:256], calib)  # warm
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        lib.reset_launches()
+        t0 = time.perf_counter()
+        rec = pipe.process_recording(raw, calib)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = dict(lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(launches == {k: int(k == K1A) for k in launches},
+              f"[precision] {p}: K1a once and no other kernel ({launches})")
+        chain_out = pipe.run_chain(raw, calib)
+        sig, count = pack_slow_time(chain_out.strongest_chirps,
+                                    chain_out.detected, cfg.pn)
+        slow = sig[: int(count)].cpu().numpy().astype(np.float64)
+        del chain_out, sig, pipe
+        meas = (rec.detected, rec.target_range, rec.target_speed)
+        row = {"seconds": seconds, "frames_per_s": FRAMES / seconds,
+               "peak_gib": peak, "k1a_launches": launches[K1A]}
+        if ref is None:
+            check(np.array_equal(rec.detected, present),
+                  "[precision] highest: detected frames = target frames")
+            ref = {"meas": meas, "waterfall": rec.waterfall, "slow": slow,
+                   "intensity": rec.spectrogram_intensity}
+            band = (ref["intensity"] >= -40.0) & (ref["intensity"] <= 0.0)
+        else:
+            same = [np.array_equal(a, b, equal_nan=True)
+                    for a, b in zip(meas, ref["meas"])]
+            if not all(same):
+                print(f"[precision] {p}: detections, ranges, speeds equal to "
+                      f"'highest': {same}; detected {int(rec.detected.sum())} "
+                      f"vs {int(ref['meas'][0].sum())}")
+            check(all(same), f"[precision] {p}: detections, ranges and speeds "
+                  "identical to 'highest'")
+            for key, got, want in (("waterfall", rec.waterfall, ref["waterfall"]),
+                                   ("slow_time", slow, ref["slow"])):
+                row[f"{key}_snr_db_vs_highest"] = (
+                    float("inf") if np.array_equal(got, want) else snr_db(got, want))
+            row["intensity_display_band_max_err_db_vs_highest"] = float(
+                np.abs(rec.spectrogram_intensity - ref["intensity"])[band].max())
+        out["recording"][p] = row
+        print(f"[precision] {p}: process_recording stft_impl='xla' {FRAMES} "
+              f"frames {seconds:.4f} s ({FRAMES / seconds:,.0f} frames/s), peak "
+              f"device memory {peak:.2f} GiB, launches {launches}; "
+              + ", ".join(f"{k} {v:.6g}" for k, v in row.items()
+                          if k.endswith("highest")))
+        del rec
+        torch.cuda.empty_cache()
+    del ref
+
+    # 3. The default path with and without the precision plumbing.
+    pcfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    check(pcfg.algorithm.matmul_precision == "highest",
+          "[precision] production() keeps matmul_precision 'highest'")
+    ppipe = RadarPipeline(pcfg, device=dev)
+    asked = []
+    real = cplx.takes_mxu_passes
+    with mxu_predicate(lambda t: asked.append(t.device) or real(t)):
+        a = ppipe.process_recording(raw, calib)
+    with mxu_predicate(lambda t: False):
+        b = ppipe.process_recording(raw, calib)
+    fields = ("waterfall", "detected", "target_range", "target_speed",
+              "spectrogram_intensity", "spectrogram_psd_db")
+    equal = {f: np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)
+             for f in fields}
+    check(all(equal.values()), f"[precision] production() bit-equal with the "
+          f"plumbing bypassed: {equal}")
+    check(not asked, f"[precision] production(): the pass predicate asked "
+          f"{len(asked)} times (every product must take the exact branch)")
+    print(f"[precision] production() (kernel export, matmul_precision 'highest') "
+          f"bit-equal to the same call with the precision plumbing bypassed in "
+          f"{', '.join(fields)}; the pass predicate was asked 0 times")
+    del a, b, ppipe
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[precision] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1994,8 +2177,11 @@ def main(argv: list[str] | None = None) -> int:
     got = hpipe.process_recording(s_raw, s_cal)
     torch.cuda.synchronize()
     h_launches = dict(_lib.LAUNCHES)
-    want = RadarPipeline(hcfg, device="cpu", impl="pallas_profile_high"
-                         ).process_recording(s_raw, s_cal)
+    # The CPU reference with the card's pass semantics (rescale_precision
+    # "high" is three bf16 passes there, exact float32 on the CPU).
+    with mxu_predicate(lambda t: True):
+        want = RadarPipeline(hcfg, device="cpu", impl="pallas_profile_high"
+                             ).process_recording(s_raw, s_cal)
     check(h_launches["fast_time_profile_b3"] > 0
           and not any(n for k, n in h_launches.items()
                       if k != "fast_time_profile_b3"),
@@ -2618,6 +2804,9 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # 11. matmul_precision and rescale_precision on the card.
+    prec = precision_phase(dev, raw, calib, present, _lib)
+
     # Launches of each kernel on the main path that drives it (the row's
     # "launches", that path named in "main_path"): the production
     # run for K1a, K2a, K3, the exact chain (impl "pallas_profile",
@@ -2658,6 +2847,10 @@ def main(argv: list[str] | None = None) -> int:
             **{k: r[k] for k in ("yardstick_ms", "fill_ms", "snr_db_vs_exact",
                                  "profiler_ms") if k in r},
             **parent_readings.get(r["name"], {})))
+    # K1a also ran once a recording in [precision]'s three recordings.
+    next(t for t in table if t["name"] == "fast_time_profile_b3")[
+        "launches_precision_phase"] = sum(
+            row["k1a_launches"] for row in prec["recording"].values())
     print(f"[time] back to back ({B2B_CALLS} calls after a warmup), ms: "
           + ", ".join(f"{r['name']} {r['ms_b2b']:.4f} (bound {r['bound'][0]:.4f})"
                       for r in rows))

@@ -20,6 +20,7 @@ columns.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -27,9 +28,12 @@ import torch
 from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.windows import blackman
 from fmcw_radar_processing_tpu_torch.utils.cplx import (
+    mxu_passes,
+    mxu_terms,
     pair_abs,
     pair_matmul,
     pin_f32_matmul,
+    precision_matmul,
 )
 
 
@@ -99,7 +103,13 @@ class PackedFastTime:
     in float32: every product of two bf16 values is exact there, so this is
     the TPU's bf16 pass with float32 accumulation, with a float32 result
     (a bf16 ``torch.matmul`` would round every output to bf16 as well).
-    :meth:`offset` and :meth:`rf_at_bins` stay float32, as in JAX.
+
+    ``precision`` is the TPU's pass count of the float32 products of
+    :meth:`rf`, :meth:`profile` and :meth:`rf_at_bins`
+    (``AlgorithmConfig.matmul_precision``; utils/cplx.py::precision_matmul:
+    the passes on the card, exact float32 on the CPU). The bf16
+    ``compute_dtype`` ignores it, and :meth:`offset` is exact float32 at
+    every precision, as in JAX.
     """
 
     w: np.ndarray  # (2·NTS, 2·K) float32, interleaved output columns
@@ -107,10 +117,13 @@ class PackedFastTime:
     nts: int
     k: int
     compute_dtype: torch.dtype = torch.float32
+    precision: str = "highest"
 
     @classmethod
     def create(cls, cfg: RadarConfig, device: torch.device | str,
-               compute_dtype: torch.dtype = torch.float32) -> "PackedFastTime":
+               compute_dtype: torch.dtype = torch.float32,
+               precision: str | None = None) -> "PackedFastTime":
+        """``precision`` defaults to ``cfg.algorithm.matmul_precision``."""
         m = build_fast_time_matrix(cfg)  # (K, NTS) complex
         k, nts = m.shape
         w = np.zeros((2 * nts, 2 * k), np.float32)
@@ -118,15 +131,25 @@ class PackedFastTime:
         w[0::2, 1::2] = m.imag.T
         w[1::2, 0::2] = -m.imag.T
         w[1::2, 1::2] = m.real.T
+        if precision is None:
+            precision = cfg.algorithm.matmul_precision
+        mxu_passes(precision)  # ValueError for an unknown name
         return cls(w=w, w_t=torch.as_tensor(w, device=device), nts=nts, k=k,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, precision=precision)
+
+    @functools.cached_property
+    def w_terms(self) -> tuple[torch.Tensor, ...]:
+        """``w_t`` split for ``precision``'s passes, once (utils/cplx.py::
+        mxu_terms)."""
+        return mxu_terms(self.w_t, self.precision)
 
     def _matmul(self, x: torch.Tensor) -> torch.Tensor:
         """x [..., 2·NTS] @ W in compute_dtype operands, float32 sums and
-        result."""
-        pin_f32_matmul()
+        result; at float32 with ``precision``'s passes."""
         if self.compute_dtype == torch.float32:
-            return x @ self.w_t
+            return precision_matmul(x, self.w_t, self.precision,
+                                    b_terms=self.w_terms)
+        pin_f32_matmul()
         return (x.to(self.compute_dtype).to(torch.float32)
                 @ self.w_t.to(self.compute_dtype).to(torch.float32))
 
@@ -160,16 +183,16 @@ class PackedFastTime:
         """Range-FFT chirp rows at selected bins only: [F, PN, T, 2].
 
         raw: [F, PN, 2·NTS] (or pair layout); idx: [F, T] range-bin
-        indices. Gathers the 2·T weight columns per frame and recomputes —
-        never touches a [F, PN, K, 2] tensor.
+        indices. Gathers the 2·T weight columns per frame and recomputes at
+        ``precision`` — never touches a [F, PN, K, 2] tensor.
         """
-        pin_f32_matmul()
         f, t = idx.shape
         x = self._flat_rows(raw).reshape(f, -1, 2 * self.nts)  # [F, PN, 2NTS]
         cols = (idx.to(torch.int64)[..., None] * 2
                 + torch.arange(2, device=idx.device)).reshape(f, 2 * t)
         w_sel = self.w_t.T[cols]  # [F, 2T, 2NTS]
-        y = torch.bmm(x, w_sel.transpose(1, 2))  # [F, PN, 2T]
+        y = precision_matmul(x, w_sel.transpose(1, 2),
+                             self.precision)  # [F, PN, 2T]
         y = y.reshape(f, x.shape[1], t, 2)
         off = self.offset(calib)[idx.to(torch.int64)]  # [F, T, 2]
         return y - off[:, None]

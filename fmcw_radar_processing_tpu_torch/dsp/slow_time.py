@@ -88,8 +88,25 @@ class DopplerPeaks(NamedTuple):
 
 def doppler_peaks_at(rd_rows: torch.Tensor, cfg: RadarConfig) -> DopplerPeaks:
     """Peak extraction from per-target Doppler rows [..., T, D, 2]."""
+    return _peaks(pair_abs(rd_rows), cfg)
+
+
+def doppler_peaks(rd_map: torch.Tensor, detection: DetectionResult,
+                  cfg: RadarConfig) -> DopplerPeaks:
+    """Peak extraction from the full range-Doppler map [..., K, D, 2] at
+    the detected range bins ``detection.idx`` [..., T] (the JAX package's
+    ``doppler_peaks``)."""
+    mag = pair_abs(rd_map)  # [..., K, D]
+    index = detection.idx.to(torch.int64)[..., None].expand(
+        *detection.idx.shape, mag.shape[-1])
+    return _peaks(torch.gather(mag, -2, index), cfg)  # rows [..., T, D]
+
+
+def _peaks(rows: torch.Tensor, cfg: RadarConfig) -> DopplerPeaks:
+    """argmax of |RD| rows [..., T, D] over Doppler, accepted iff ≥
+    Doppler_threshold and off the zero bin, and its speed
+    (radar_processing.m:227-250)."""
     zero_bin = cfg.zero_doppler_bin
-    rows = pair_abs(rd_rows)  # [..., T, D]
     dop_idx = rows.argmax(dim=-1).to(torch.int32)
     val = rows.amax(dim=-1)
     accept = (val >= cfg.algorithm.doppler_threshold) & (dop_idx != zero_bin)

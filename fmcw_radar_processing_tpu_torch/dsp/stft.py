@@ -21,7 +21,11 @@ import numpy as np
 import torch
 
 from fmcw_radar_processing_tpu_torch.dsp.windows import kaiser
-from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+from fmcw_radar_processing_tpu_torch.utils.cplx import (
+    mxu_passes,
+    mxu_terms,
+    precision_matmul,
+)
 
 DB_FLOOR = -1000.0
 """dB floor standing in for MATLAB's −inf at P = 0 (radar_processing.m:283);
@@ -68,14 +72,20 @@ class StftOperator:
     hop: int
     fs: float
     scale: float  # 1 / (fs · Σw²)
-    # Per-device copies of the stacked operator and the doubling vector,
-    # made once so that a call copies nothing from the host.
+    # The TPU's pass count of the stacked product (AlgorithmConfig.
+    # matmul_precision; utils/cplx.py::precision_matmul).
+    precision: str = "highest"
+    # Per-device copies of the stacked operator (with its split for
+    # ``precision``) and the doubling vector, made once so that a call
+    # copies nothing from the host.
     _on_device: dict = dataclasses.field(default_factory=dict, init=False,
                                          repr=False, compare=False, hash=False)
 
     @classmethod
     def create(cls, *, window_length: int = 20, beta: float = 3.0, nfft: int,
-               fs: float, hop: int = 1) -> "StftOperator":
+               fs: float, hop: int = 1,
+               precision: str = "highest") -> "StftOperator":
+        mxu_passes(precision)  # ValueError for an unknown name
         w = kaiser(window_length, beta)
         nb = nfft // 2 + 1
         kk = np.arange(nb)[:, None]
@@ -89,6 +99,7 @@ class StftOperator:
             hop=hop,
             fs=float(fs),
             scale=float(1.0 / (fs * np.sum(w**2))),
+            precision=precision,
         )
 
     @property
@@ -101,31 +112,33 @@ class StftOperator:
         return x.unfold(-1, self.window_length, self.hop).transpose(-1, -2)
 
     def _device_operator(self, device: torch.device):
-        """(A2 = [a_re; a_im] [2·nb, W], one-sided doubling [nb, 1]) on
-        ``device``."""
+        """(A2 = [a_re; a_im] [2·nb, W], its utils/cplx.py::mxu_terms for
+        ``precision``, one-sided doubling [nb, 1]) on ``device``."""
         if device not in self._on_device:
             dbl = np.full((self.num_bins, 1), 2.0, np.float32)
             dbl[0] = 1.0
             if self.nfft % 2 == 0:
                 dbl[-1] = 1.0
-            a2 = np.concatenate([self.a_re, self.a_im], axis=0)
-            self._on_device[device] = (torch.as_tensor(a2, device=device),
+            a2 = torch.as_tensor(np.concatenate([self.a_re, self.a_im], axis=0),
+                                 device=device)
+            self._on_device[device] = (a2, mxu_terms(a2, self.precision),
                                        torch.as_tensor(dbl, device=device))
         return self._on_device[device]
 
     def __call__(self, x: torch.Tensor,
                  valid_len: torch.Tensor | int | None = None) -> SpectrogramResult:
         """One-sided PSD spectrogram of a real signal (the JAX package's
-        ``StftOperator.__call__``), by one stacked float32 product.
+        ``StftOperator.__call__``), by one stacked float32 product at
+        ``precision`` (the frame matrix split per call).
 
         x: [..., L] float32 (|·| of the slow-time signal), L ≥ W.
         valid_len: optional count of valid samples, scalar or one per
           leading index; columns reaching past it are zeroed.
         """
-        pin_f32_matmul()
-        a2, dbl = self._device_operator(x.device)
+        a2, a2_terms, dbl = self._device_operator(x.device)
         frames = self.frame_signal(x.to(torch.float32))  # [..., W, T]
-        s2 = torch.matmul(a2, frames)  # [..., 2·nb, T]
+        s2 = precision_matmul(a2, frames, self.precision,
+                              a_terms=a2_terms)  # [..., 2·nb, T]
         nb = self.num_bins
         s_re, s_im = s2[..., :nb, :], s2[..., nb:, :]
         p = (s_re * s_re + s_im * s_im) * float(np.float32(self.scale))
@@ -220,27 +233,39 @@ def log_bins_axis(freqs: np.ndarray, num_bins: int = 1024) -> np.ndarray:
         .astype(np.float32))
 
 
-def log_interp(values: torch.Tensor, num_bins: int = 1024) -> torch.Tensor:
-    """Interpolate [..., nb, T] onto the log grid: the dense float32
-    contraction over the first nb−1 bins plus the Nyquist column as a
-    rank-1 term → [..., num_bins, T]."""
-    pin_f32_matmul()
+@functools.lru_cache(maxsize=32)
+def _log_interp_operator(nb: int, num_bins: int, device: torch.device,
+                         precision: str):
+    """(W [num_bins, nb] on ``device``, the utils/cplx.py::mxu_terms of its
+    first nb−1 columns for ``precision``), made once."""
+    w = torch.as_tensor(_log_interp_matrix(nb, num_bins), device=device)
+    return w, mxu_terms(w[:, : nb - 1], precision)
+
+
+def log_interp(values: torch.Tensor, num_bins: int = 1024,
+               precision: str = "highest") -> torch.Tensor:
+    """Interpolate [..., nb, T] onto the log grid: the dense contraction
+    over the first nb−1 bins at ``precision`` (utils/cplx.py::
+    precision_matmul) plus the Nyquist column as a rank-1 float32 term, as
+    the JAX package peels it → [..., num_bins, T]."""
     nb = values.shape[-2]
-    w = torch.as_tensor(_log_interp_matrix(nb, num_bins), device=values.device)
-    return (torch.matmul(w[:, : nb - 1], values[..., : nb - 1, :])
+    w, w_terms = _log_interp_operator(nb, num_bins, values.device, precision)
+    return (precision_matmul(w[:, : nb - 1], values[..., : nb - 1, :],
+                             precision, a_terms=w_terms)
             + w[:, nb - 1 : nb] * values[..., nb - 1 : nb, :])
 
 
 def log_frequency_rescale(
     freqs: np.ndarray, values: torch.Tensor, num_bins: int = 1024,
-    method: str = "matmul",
+    precision: str = "highest", method: str = "matmul",
 ) -> tuple[np.ndarray, torch.Tensor]:
     """Log-spaced frequency re-gridding (radar_processing.m:291-299).
 
     freqs: [nb] uniform host axis; values: [..., nb, T].
-    method: "matmul" (:func:`log_interp`) or "gather" (two row gathers and
-    ``lo + frac·(hi − lo)``), the JAX package's two formulations, both
-    exact float32 here.
+    method: "matmul" (:func:`log_interp` at ``precision``,
+    ``AlgorithmConfig.rescale_precision``) or "gather" (two row gathers
+    and ``lo + frac·(hi − lo)``, exact float32 at every precision), the
+    JAX package's two formulations.
     Returns (log_bins [num_bins], interp [..., num_bins, T]).
     """
     if method == "gather":
@@ -254,4 +279,5 @@ def log_frequency_rescale(
         return log_bins_axis(freqs, num_bins), lo + frac * (hi - lo)
     if method != "matmul":
         raise ValueError(f"unknown rescale method {method!r}")
-    return log_bins_axis(freqs, num_bins), log_interp(values, num_bins)
+    return (log_bins_axis(freqs, num_bins),
+            log_interp(values, num_bins, precision))

@@ -48,7 +48,11 @@ from fmcw_radar_processing_tpu_torch.dsp.fast_time import (
     range_profile,
 )
 from fmcw_radar_processing_tpu_torch.ops import _lib
-from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+from fmcw_radar_processing_tpu_torch.utils.cplx import (
+    bf16x3_product,
+    pin_f32_matmul,
+    split_bf16x3,
+)
 
 KERNEL_PN = 16  # chirps per frame the kernel is built for
 KERNEL_IN = 128  # 2·NTS
@@ -104,13 +108,6 @@ def calib_offset(calib: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (calib.to(torch.float32).reshape(1, -1) @ w).reshape(-1)
 
 
-def split_bf16x3(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(w_hi, w_lo) bf16 on w's device: w_hi = bf16(w), w_lo = bf16(w −
-    w_hi), both round to nearest even — the TPU kernel's weight split."""
-    w_hi = w.to(torch.bfloat16)
-    return w_hi, (w - w_hi.to(torch.float32)).to(torch.bfloat16)
-
-
 def split_bf16x6(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """(t1, t2, t3) bf16 on t's device: t1 = bf16(t), t2 = bf16(t − t1),
@@ -158,16 +155,16 @@ def fast_time_b6_ref(x: torch.Tensor, w: torch.Tensor, off: torch.Tensor,
 def fast_time_profile_b3_ref(x: torch.Tensor, w_hi: torch.Tensor,
                              w_lo: torch.Tensor, off: torch.Tensor,
                              pn: int) -> torch.Tensor:
-    """Plain version of K1a: x_hi = bf16(x), x_lo = bf16(x − x_hi), then
+    """Plain version of K1a: x_hi = bf16(x), x_lo = bf16(x − x_hi)
+    (utils/cplx.py::split_bf16x3, as the weight is split), then
     x_hi·w_hi + x_lo·w_hi + x_hi·w_lo − off as three float32 matmuls
     (every product of two bf16 values is exact in float32), |·| and the
     max over the PN chirps of each frame → profile [F, K]."""
     pin_f32_matmul()
     k = w_hi.shape[1] // 2
-    x_hi = x.to(torch.bfloat16).to(torch.float32)
-    x_lo = (x - x_hi).to(torch.bfloat16).to(torch.float32)
-    wh, wl = w_hi.to(torch.float32), w_lo.to(torch.float32)
-    y = x_hi @ wh + x_lo @ wh + x_hi @ wl - off
+    x_hi, x_lo = (h.to(torch.float32) for h in split_bf16x3(x))
+    y = bf16x3_product(x_hi, x_lo, w_hi.to(torch.float32),
+                       w_lo.to(torch.float32)) - off
     mag = torch.sqrt(y[:, :k] * y[:, :k] + y[:, k:] * y[:, k:])
     return mag.reshape(-1, pn, k).amax(dim=1)
 

@@ -82,7 +82,8 @@ class ShardedRecordingPipeline:
         self.chain = make_sharded_frame_chain(cfg, mesh, self.device)
         self.op = StftOperator.create(
             window_length=a.stft_window_length, beta=a.stft_kaiser_beta,
-            nfft=a.stft_nfft, fs=1.0 / cfg.derived.prt, hop=1)
+            nfft=a.stft_nfft, fs=1.0 / cfg.derived.prt, hop=1,
+            precision=a.matmul_precision)
         self.stft = ShardedStft(op=self.op, mesh=mesh)
 
     def pack(self, strongest_chirps: torch.Tensor,
@@ -134,7 +135,7 @@ class ShardedRecordingPipeline:
             # Per-column contraction: each rank rescales its own columns.
             _, arrays["intensity"] = log_frequency_rescale(
                 self.stft.freqs, arrays["db"], a.max_freq_bins,
-                method=a.rescale_method)
+                precision=a.rescale_precision, method=a.rescale_method)
             n_valid = stft_frame_count(count, wl, self.op.hop)
         gathered = gather_to_all(arrays, self.mesh,
                                  dims={"range": 1, "speed": 1, "db": 1,

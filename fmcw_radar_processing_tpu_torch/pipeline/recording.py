@@ -163,7 +163,8 @@ class RadarPipeline:
         op = StftOperator.create(
             window_length=wl, beta=a.stft_kaiser_beta,
             nfft=a.stft_nfft or next_pow2(count),  # the nfft bucket (:273)
-            fs=1.0 / self.cfg.derived.prt, hop=a.stft_hop or 1)
+            fs=1.0 / self.cfg.derived.prt, hop=a.stft_hop or 1,
+            precision=a.matmul_precision)
         kernels = resolve_stft_impl(a.stft_impl, op.hop) == "pallas"
         n_valid = stft_frame_count(count, wl, op.hop)
         int_dtype = _STORE_DTYPES[a.intensity_dtype]
@@ -193,7 +194,8 @@ class RadarPipeline:
                 # (whatever stft_db_store says), the rescale, then the cast.
                 db = psd_db(op(sig, valid_len=count).power)
                 _, intensity = log_frequency_rescale(
-                    freqs, db, a.max_freq_bins, method=a.rescale_method)
+                    freqs, db, a.max_freq_bins, precision=a.rescale_precision,
+                    method=a.rescale_method)
                 intensity = (quantize_db_int8(intensity) if int_dtype == torch.int8
                              else intensity.to(int_dtype))
             tm.observe((db, intensity))

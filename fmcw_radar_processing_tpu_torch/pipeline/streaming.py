@@ -97,7 +97,7 @@ class StreamingProcessor:
         self._chain = make_frame_chain(cfg, self.device)
         self._stft = StftOperator.create(
             window_length=self._wl, beta=a.stft_kaiser_beta, nfft=nfft,
-            fs=1.0 / cfg.derived.prt, hop=1)
+            fs=1.0 / cfg.derived.prt, hop=1, precision=a.matmul_precision)
         self.reset()
 
     def reset(self) -> None:

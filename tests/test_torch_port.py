@@ -60,7 +60,8 @@ assert len(names) > 30 and not bad
 new = {port.__name__ + "." + m for m in (
     "entry", "io.native_loader", "parallel", "parallel.mesh", "parallel.multihost",
     "parallel.sharded_chain", "parallel.sharded_stft", "parallel.tp_chain",
-    "parallel.pp_chain", "parallel.sp_recording")}
+    "parallel.pp_chain", "parallel.sp_recording", "tools", "tools.oracle",
+    "tools.snr_ladder")}
 assert new <= set(names), new - set(names)
 import torch.distributed
 assert not torch.distributed.is_initialized()  # importing starts no group
@@ -68,8 +69,9 @@ assert not torch.distributed.is_initialized()  # importing starts no group
 
 
 def test_port_and_chip_smoke_load_no_jax_package_module():
-    """Every submodule of the port (parallel/, io/native_loader.py and
-    entry.py among them), and chip_smoke.py, imported in a fresh process:
+    """Every submodule of the port (parallel/, io/native_loader.py,
+    entry.py and tools/ among them), and chip_smoke.py, imported in a fresh
+    process:
     sys.modules then holds no jax and no fmcw_radar_processing_tpu module,
     and no process group was started."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
