@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py --parallel-cards N
+
+``--parallel-cards N`` runs only the parallel paths, on N cards under
+NCCL, one card a rank (:func:`parallel_cards_phase`); without an option
+it runs everything below on one card.
 
 Builds the CUDA kernels from ``fmcw_radar_processing_tpu_torch/csrc``
 and holds each against its plain PyTorch version, timing both: K1a (the
@@ -125,6 +130,13 @@ VGG_BATCHES = (1, 8, 64)
 # through the host; the sp export gathers its [1024, L] float32 intensity
 # on every rank (0.48 GB at 8,192 frames, 3.9 GB at 65,536).
 PAR_FRAMES = 8_192
+# K1a's launches per rank on each path of entry.py::run_multichip_checks:
+# once a chain call; streaming runs 2 windows × 2 channels a rank.
+K1A_PER_PATH = {"dp": 1, "sp": 1, "multihost": 1, "tp": 0, "pp": 0, "stft": 0,
+                "train": 0, "stream": 4}
+# The worker of the true multi-process run (multihost.initialize).
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MULTIHOST_WORKER = os.path.join(ROOT, "tests", "_torch_multihost_worker.py")
 # [train]: the notebook's transfer setup (cell 17: batch 32; cell 19: Adam
 # 1e-4), then the JAX test's toy experiment (test_experiment.py:60-75).
 TRAIN_BATCH = 32
@@ -1198,6 +1210,82 @@ def train_phase(dev, tmp: str, lib) -> dict:
     return out
 
 
+def main_targets() -> tuple:
+    """The main path's two targets, a strong and a weak one."""
+    from fmcw_radar_processing_tpu_torch import SyntheticTarget
+
+    return (SyntheticTarget(range_m=7.5, doppler_bin_offset=3, amplitude=4.0),
+            SyntheticTarget(range_m=16.9, doppler_bin_offset=-2, amplitude=2.0))
+
+
+def production_recording(cfg, rng: np.random.Generator
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The main path's input: FRAMES frames of :func:`main_targets` (seed
+    SEED), about MUTED_SHARE of them muted, drawn from ``rng``, so that
+    slow-time packing is not the identity. Returns (raw [F, PN, 2·NTS],
+    calib [NTS, 2], the frames with targets)."""
+    from fmcw_radar_processing_tpu_torch import synthesize_recording
+    from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+
+    present = rng.random(FRAMES) >= MUTED_SHARE
+    t0 = time.perf_counter()
+    rec = synthesize_recording(cfg, FRAMES, main_targets(), seed=SEED,
+                               target_present=present)
+    raw = to_pair(rec.rx1()).reshape(FRAMES, cfg.pn, 2 * cfg.nts)
+    calib = to_pair(rec.calib_vector(0, cfg.nts))
+    print(f"[setup] synthesized {FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s; {int(present.sum())} with targets")
+    return raw, calib, present
+
+
+def world_summary(world: int, reports: list, backend: str, frames: int,
+                  wall: str, where: str) -> dict:
+    """Check one world's reports of entry.py::dryrun_multichip (its
+    backend, K1a's launches per rank and path, and under NCCL one card a
+    rank: rank r on cuda:r, every UUID its own), print its line, and return
+    its summary."""
+    ran = [p for p in reports[0] if isinstance(reports[0][p], dict)]
+    check(all(r["backend"] == backend and r["world"] == world for r in reports),
+          f"[parallel] world {world} ran under {backend}")
+    cards = [r["card"] for r in reports]
+    uuids = [r["uuid"] for r in reports]
+    if backend == "nccl":
+        check(cards == list(range(world)) and len(set(uuids)) == world,
+              f"[parallel] world {world}: rank r on cuda:r, UUIDs distinct "
+              f"(cards {cards}, UUIDs {uuids})")
+    row = {}
+    for p in ran:
+        per_rank = [r[p]["k1a"] for r in reports]
+        want = K1A_PER_PATH[p]
+        check(per_rank == [want] * world,
+              f"[parallel] world {world} {p}: K1a launched {per_rank} per rank, "
+              f"expected {want}")
+        row[p] = {"slowest_rank_s": max(r[p]["seconds"] for r in reports),
+                  "k1a_per_rank": per_rank,
+                  "check_s": max(r[p]["check_s"] for r in reports)}
+        if "second_s" in reports[0][p]:
+            row[p]["second_slowest_rank_s"] = max(r[p]["second_s"] for r in reports)
+    if "sp" in ran:
+        for key in ("intensity_max_abs_err_db", "gather_s"):
+            row["sp"][key] = max(r["sp"][key] for r in reports)
+    checks = max(r["checks_s"] for r in reports)
+    refs = max(r["references_s"] for r in reports)
+    print(f"[parallel] world {world} ({backend}, {frames} frames, {where}; cards "
+          f"{cards}): all checks passed ({checks:.2f} s in the slowest rank's "
+          f"checks, of them {refs:.2f} s the single-device chains; {wall}); "
+          + "; ".join(f"{p} {v['slowest_rank_s']:.4f} s"
+                      + (f", again {v['second_slowest_rank_s']:.4f} s"
+                         if "second_slowest_rank_s" in v else "")
+                      + f" (slowest rank; its reference and comparison "
+                      f"{v['check_s']:.2f} s), K1a {v['k1a_per_rank']}"
+                      for p, v in row.items())
+          + (f"; sp intensity within {row['sp']['intensity_max_abs_err_db']:.2e} "
+             "dB of RadarPipeline above -120 dB, its gather alone "
+             f"{row['sp']['gather_s']:.4f} s (slowest rank)" if "sp" in row else ""))
+    return {"backend": backend, "frames": frames, "cards": cards, "uuids": uuids,
+            "checks_s": checks, "references_s": refs, "paths": row}
+
+
 def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
     """[parallel] The parallel paths of parallel/ (entry.py::
     dryrun_multichip, each checked on every rank against the single-device
@@ -1211,7 +1299,9 @@ def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
     launches on each rank. Then the native reader behind
     load_recording_for_chain, and a ``process --trace-dir`` run whose
     trace must name K1a's kernel; then the same command in this process,
-    which must launch K1a (its trace is printed, not checked)."""
+    which must launch K1a (its trace is printed, not checked). With more
+    cards, ``--parallel-cards`` runs every path under NCCL, one card a
+    rank (:func:`parallel_cards_phase`)."""
     from fmcw_radar_processing_tpu_torch.entry import K1A, dryrun_multichip
     from fmcw_radar_processing_tpu_torch.io.native_loader import native_available
     from fmcw_radar_processing_tpu_torch.io.raw_format import (
@@ -1220,57 +1310,25 @@ def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
     )
 
     print(f"[parallel] card: {card_line()}")
-    # K1a per rank: once a chain call; streaming runs 2 windows × 2 channels.
-    k1a_per_call = {"dp": 1, "sp": 1, "multihost": 1, "tp": 0, "pp": 0, "stft": 0,
-                    "train": 0, "stream": 4}
-    out = {}
     # World 1 in this process; worlds 2 and 4 from one spawn of four ranks
-    # (each rank pays its start-up once, then joins the worlds it is in).
+    # (each rank pays its start-up once, then joins the worlds it is in),
+    # every rank on ``dev`` (an explicit index: gloo's ranks share it).
     t0 = time.perf_counter()
     runs = {1: dryrun_multichip(1, "nccl", dev, recording=(raw, calib),
                                 paths=("train", "dp", "sp"))}
-    walls = {1: time.perf_counter() - t0}
+    wall1 = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs.update(dryrun_multichip((2, 4), "gloo", dev,
                                  recording=(raw[:PAR_FRAMES], calib),
                                  stream_window=STREAM_WINDOW))
-    walls[2] = walls[4] = time.perf_counter() - t0
-    for world, reports in runs.items():
-        backend = "nccl" if world == 1 else "gloo"
-        frames = raw.shape[0] if world == 1 else PAR_FRAMES
-        wall = walls[world]
-        ran = [p for p in reports[0] if isinstance(reports[0][p], dict)]
-        check(all(r["backend"] == backend and r["world"] == world for r in reports),
-              f"[parallel] world {world} ran under {backend}")
-        row = {}
-        for p in ran:
-            per_rank = [r[p]["k1a"] for r in reports]
-            want = k1a_per_call[p]
-            check(per_rank == [want] * world,
-                  f"[parallel] world {world} {p}: K1a launched {per_rank} per rank, "
-                  f"expected {want}")
-            row[p] = {"slowest_rank_s": max(r[p]["seconds"] for r in reports),
-                      "k1a_per_rank": per_rank,
-                      "check_s": max(r[p]["check_s"] for r in reports)}
-        if "sp" in ran:
-            row["sp"]["intensity_max_abs_err_db"] = max(
-                r["sp"]["intensity_max_abs_err_db"] for r in reports)
-        checks = max(r["checks_s"] for r in reports)
-        refs = max(r["references_s"] for r in reports)
-        out[f"world{world}"] = {"backend": backend, "frames": frames,
-                                "wall_s": wall, "checks_s": checks,
-                                "references_s": refs, "paths": row}
-        print(f"[parallel] world {world} ({backend}, {frames} frames, every rank on "
-              f"{torch.cuda.get_device_name(dev)}): all checks passed "
-              f"({checks:.2f} s in the slowest rank's checks, of them {refs:.2f} s "
-              "the single-device chains; "
-              + (f"{wall:.2f} s in all" if world == 1 else
-                 f"worlds 2 and 4 {wall:.2f} s in all, one spawn") + "); "
-              + "; ".join(f"{p} {v['slowest_rank_s']:.4f} s (slowest rank; its "
-                          f"reference and comparison {v['check_s']:.2f} s), K1a "
-                          f"{v['k1a_per_rank']}" for p, v in row.items())
-              + (f"; sp intensity within {row['sp']['intensity_max_abs_err_db']:.2e} "
-                 "dB of RadarPipeline above -120 dB" if "sp" in row else ""))
+    wall24 = time.perf_counter() - t0
+    where = f"every rank on {torch.cuda.get_device_name(dev)}"
+    out = {"world1": world_summary(1, runs[1], "nccl", raw.shape[0],
+                                   f"{wall1:.2f} s in all", where)}
+    for world in (2, 4):
+        out[f"world{world}"] = world_summary(
+            world, runs[world], "gloo", PAR_FRAMES,
+            f"worlds 2 and 4 {wall24:.2f} s in all, one spawn", where)
 
     # The native streaming reader behind load_recording_for_chain.
     from fmcw_radar_processing_tpu_torch import (
@@ -1306,7 +1364,7 @@ def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
         [sys.executable, "-m", "fmcw_radar_processing_tpu_torch.serve.cli", "process",
          base, "--output-dir", os.path.join(tmp, "out"), "--trace-dir", trace_dir,
          "--compact-json"], capture_output=True, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+        cwd=ROOT)
     check(proc.returncode == 0, "[parallel] process --trace-dir: "
           + proc.stderr[-2000:])
     files = os.listdir(trace_dir)
@@ -1346,6 +1404,173 @@ def parallel_phase(dev, raw: np.ndarray, calib: np.ndarray, tmp: str) -> dict:
           f"{launched}; its trace names K1a: {named} ({len(here)} kernels: "
           f"{[k[:40] for k in here[:8]]})")
     out["in_process"] = {"k1a_launches": launched, "trace_names_k1a": named}
+    return out
+
+
+def initialize_run(n: int, tmp: str) -> dict:
+    """The true multi-process run: n OS processes of
+    tests/_torch_multihost_worker.py, each through multihost.initialize
+    ("file://" rendezvous, NCCL) on a card of its own, running the sharded
+    chain on its quarter of a 32-frame recording (seed 5). Every process's
+    gathered outputs must be the same, its card cuda:<pid> with a UUID of
+    its own, K1a launched once in each, host 0's artifact seen by all;
+    and the outputs must be make_frame_chain's on one card (the waterfall
+    bit-equal, the rest within entry.check_vs_single's bounds)."""
+    from fmcw_radar_processing_tpu_torch.config import (
+        RadarConfig,
+        default_device_config,
+    )
+    from fmcw_radar_processing_tpu_torch.entry import example_recording
+    from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import make_frame_chain
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, MULTIHOST_WORKER, f"file://{tmp}/rendezvous", str(n),
+         str(pid), tmp, "nccl", "cuda"], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0 and f"worker {pid} ok" in log,
+              f"[parallel-cards] initialize worker {pid} (rc {p.returncode}):\n"
+              + log[-3000:])
+    got = [dict(np.load(os.path.join(tmp, f"proc{pid}.npz"))) for pid in range(n)]
+    keys = ("waterfall", "range", "speed", "detected")
+    check(all(np.array_equal(g[k], got[0][k], equal_nan=k in ("range", "speed"))
+              for g in got for k in keys),
+          "[parallel-cards] initialize: every process gathered the same outputs")
+    cards = [int(g["card"]) for g in got]
+    uuids = [str(g["uuid"]) for g in got]
+    k1a = [int(g["k1a"]) for g in got]
+    check(cards == list(range(n)) and len(set(uuids)) == n and k1a == [1] * n,
+          f"[parallel-cards] initialize: cards {cards}, UUIDs {uuids}, K1a {k1a}")
+    with open(os.path.join(tmp, "host0_artifact")) as fh:
+        check(fh.read() == "ok", "[parallel-cards] initialize: host 0's artifact")
+    cfg = RadarConfig.create(default_device_config())
+    raw, calib = example_recording(cfg, got[0]["waterfall"].shape[0], seed=5)
+    dev = torch.device("cuda", 0)
+    want = make_frame_chain(cfg, dev)(torch.as_tensor(raw, device=dev),
+                                      torch.as_tensor(calib, device=dev))
+    g = got[0]
+    check(np.array_equal(g["waterfall"], want.waterfall.cpu().numpy())
+          and np.array_equal(g["detected"], want.detected.cpu().numpy()),
+          "[parallel-cards] initialize: waterfall and detections = make_frame_chain")
+    np.testing.assert_allclose(np.nan_to_num(g["range"]),
+                               np.nan_to_num(want.range.cpu().numpy()), rtol=1e-5)
+    np.testing.assert_allclose(np.nan_to_num(g["speed"]),
+                               np.nan_to_num(want.speed.cpu().numpy()),
+                               rtol=1e-4, atol=1e-6)
+    print(f"[parallel-cards] multihost.initialize: {n} processes (NCCL, file:// "
+          f"rendezvous) on cards {cards}, UUIDs distinct, K1a {k1a}; outputs the "
+          f"same in every process and make_frame_chain's; host 0's artifact seen "
+          f"by all; {wall:.2f} s from launch to exit")
+    return {"processes": n, "cards": cards, "uuids": uuids, "k1a": k1a,
+            "wall_s": wall}
+
+
+def parallel_cards_phase(n: int) -> dict:
+    """``--parallel-cards N``: only the parallel paths, under NCCL, one
+    card a rank. The kernels are built first; then every path of
+    entry.py::PATHS runs through dryrun_multichip at worlds 1, 2 and N on
+    the main path's FRAMES-frame recording, uncut, each held on every rank
+    to the single-device chain (world_summary: rank r on cuda:r, distinct
+    UUIDs, K1a per rank); then worlds 2 and N under gloo and under NCCL
+    at PAR_FRAMES frames on the same cards, one card a rank, which prices
+    gloo's host staging; then :func:`initialize_run`. Prints the cards,
+    the NCCL version and the link between the cards (``nvidia-smi topo
+    -m``) first."""
+    from fmcw_radar_processing_tpu_torch.config import (
+        AlgorithmConfig,
+        RadarConfig,
+        default_device_config,
+    )
+    from fmcw_radar_processing_tpu_torch.entry import dryrun_multichip
+    from fmcw_radar_processing_tpu_torch.ops import _lib
+
+    print(card_line())
+    print("[parallel-cards] cards: " + "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit,pci.bus_id,uuid",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()))
+    print(f"[parallel-cards] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}")
+    # The link between the cards: nvidia-smi's matrix and NVLink state
+    # where the machine lets it read them, peer access as CUDA reports it,
+    # and a 1 GiB copy from cuda:0 to each other card.
+    topo = "\n".join(subprocess.run(cmd, capture_output=True, text=True).stdout.rstrip()
+                     for cmd in (["nvidia-smi", "topo", "-m"],
+                                 ["nvidia-smi", "nvlink", "--status", "-i", "0"]))
+    links = re.findall(r"Link \d+: (.+)", topo)
+    for line in topo.splitlines():
+        if "Link" not in line:
+            print(f"[topo] {line}")
+    print(f"[topo] {len(links)} NVLink links on cuda:0: {sorted(set(links))}")
+    out = {"nccl": torch.cuda.nccl.version(), "topo": topo,
+           "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                            for j in range(n)] for i in range(n)],
+           "copy_gb_s": {}}
+    src = torch.empty(2**28, device="cuda:0")  # 1 GiB of float32
+    for j in range(1, n):
+        dst = torch.empty_like(src, device=f"cuda:{j}")
+        dst.copy_(src)  # warm the path
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(0)
+        start.record()
+        for _ in range(5):
+            dst.copy_(src)
+        end.record()
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(j)
+        out["copy_gb_s"][f"0->{j}"] = 5 * src.nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+        del dst
+    del src
+    torch.cuda.empty_cache()
+    print(f"[topo] peer access {out['peer_access']}; 1 GiB copies from cuda:0, "
+          "GB/s: " + ", ".join(f"{k} {v:.1f}" for k, v in out["copy_gb_s"].items()))
+    t0 = time.perf_counter()
+    _lib.load_kernels()
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    raw, calib, _ = production_recording(cfg, np.random.default_rng(SEED))
+    worlds = tuple(sorted({1, 2, n}))
+    t0 = time.perf_counter()
+    runs = dryrun_multichip(worlds, "nccl", "cuda", recording=(raw, calib),
+                            stream_window=STREAM_WINDOW)
+    wall = time.perf_counter() - t0
+    for world in worlds:
+        out[f"world{world}"] = world_summary(
+            world, runs[world], "nccl", FRAMES,
+            f"worlds {', '.join(map(str, worlds))} {wall:.2f} s in all, one spawn",
+            "one card a rank")
+    # What gloo's host staging costs: both backends on the same cards, one
+    # card a rank, at PAR_FRAMES frames (the size of the one-card gloo runs).
+    for backend in ("gloo", "nccl"):
+        t0 = time.perf_counter()
+        runs = dryrun_multichip((2, n), backend, "cuda",
+                                recording=(raw[:PAR_FRAMES], calib),
+                                stream_window=STREAM_WINDOW)
+        wall = time.perf_counter() - t0
+        for world in (2, n):
+            out[f"{backend}_{PAR_FRAMES}_world{world}"] = world_summary(
+                world, runs[world], backend, PAR_FRAMES,
+                f"worlds 2, {n} {wall:.2f} s in all, one spawn", "one card a rank")
+    del raw
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_initialize_")
+    try:
+        out["initialize"] = initialize_run(n, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -1532,17 +1757,34 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout of the repo whose K1c and K7 are timed "
                          "against this one's, in turns, on the same inputs")
+    ap.add_argument("--parallel-cards", metavar="N", type=int,
+                    help="run only the parallel paths, under NCCL with one card "
+                         "a rank, on N cards (worlds 1, 2 and N at the main "
+                         "path's size), and N processes through "
+                         "multihost.initialize")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
               "card", file=sys.stderr)
         return 2
+    if args.parallel_cards is not None:
+        n, have = args.parallel_cards, torch.cuda.device_count()
+        if n < 2 or FRAMES % (2 * n):
+            ap.error(f"--parallel-cards takes an N ≥ 2 dividing {FRAMES // 2}")
+        if have < n:
+            print(f"chip_smoke: --parallel-cards {n} needs {n} cards, found "
+                  f"{have}", file=sys.stderr)
+            return 2
+        print(json.dumps({"parallel_cards": parallel_cards_phase(n)}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from fmcw_radar_processing_tpu_torch import (
         AlgorithmConfig,
         LocalStorage,
         RadarConfig,
-        SyntheticTarget,
         default_device_config,
         synthesize_recording,
         write_recording,
@@ -1633,17 +1875,9 @@ def main(argv: list[str] | None = None) -> int:
     # The main path's input: a 65,536-frame recording, two targets, about
     # 10% of frames muted so that slow-time packing is not the identity.
     cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
-    rng = np.random.default_rng(SEED)
-    present = rng.random(FRAMES) >= MUTED_SHARE
-    strong = SyntheticTarget(range_m=7.5, doppler_bin_offset=3, amplitude=4.0)
-    weak = SyntheticTarget(range_m=16.9, doppler_bin_offset=-2, amplitude=2.0)
-    t0 = time.perf_counter()
-    rec = synthesize_recording(cfg, FRAMES, (strong, weak), seed=SEED,
-                               target_present=present)
-    raw = to_pair(rec.rx1()).reshape(FRAMES, cfg.pn, 2 * cfg.nts)
-    calib = to_pair(rec.calib_vector(0, cfg.nts))
-    print(f"[setup] synthesized {FRAMES} frames in "
-          f"{time.perf_counter() - t0:.1f} s; {int(present.sum())} with targets")
+    rng = np.random.default_rng(SEED)  # drawn on below, after the mask
+    raw, calib, present = production_recording(cfg, rng)
+    strong, weak = main_targets()
 
     # 3. Kernel parity at the main-path shapes, and 4. timing.
     rows: list[dict] = []

@@ -25,6 +25,11 @@ class DetectionResult(NamedTuple):
     magnitude: torch.Tensor  # [..., T] float32 — profile value at each peak
     valid: torch.Tensor  # [..., T] bool — which capacity slots hold real targets
 
+    @property
+    def num_targets(self) -> torch.Tensor:
+        """[...] int32 — the valid slots of each profile."""
+        return self.valid.sum(-1, dtype=torch.int32)
+
 
 def gate_mask(cfg: RadarConfig) -> np.ndarray:
     """Static per-bin eligibility mask from the distance gate ([K] bool)."""

@@ -21,6 +21,7 @@ import datetime
 import functools
 import os
 import pickle
+import sys
 import tempfile
 import time
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fmcw_radar_processing_tpu_torch.parallel.mesh import rank_device
 from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
 
 PATHS = ("train", "dp", "tp", "pp", "stft", "sp", "multihost", "stream")
@@ -35,9 +37,10 @@ PATHS = ("train", "dp", "tp", "pp", "stft", "sp", "multihost", "stream")
 K1A = "fast_time_profile_b3"  # the launch counter of kernel K1a
 
 
-def _example_recording(cfg, num_frames: int):
-    """The JAX dryrun's recording: two targets, seed 0, as flat pair rows
-    [F, PN, 2·NTS] and a [NTS, 2] calibration pair."""
+def example_recording(cfg, num_frames: int, seed: int = 0):
+    """The JAX dryrun's recording: two targets (seed 0; the JAX package's
+    multi-process test takes seed 5), as flat pair rows [F, PN, 2·NTS] and
+    a [NTS, 2] calibration pair."""
     from fmcw_radar_processing_tpu_torch.io.synth import (
         SyntheticTarget,
         synthesize_recording,
@@ -48,7 +51,7 @@ def _example_recording(cfg, num_frames: int):
         cfg, num_frames,
         (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
          SyntheticTarget(range_m=16.9, doppler_bin_offset=-2, amplitude=2.5)),
-        seed=0)
+        seed=seed)
     raw = to_pair(rec.rx1()).reshape(num_frames, cfg.pn, 2 * cfg.nts)
     return raw, to_pair(rec.calib_vector(0, cfg.nts))
 
@@ -94,7 +97,7 @@ def entry(device: torch.device | str = "cuda"):
                 "speed": out.speed, "strength": out.strength,
                 "detected": out.detected, "spectrogram_intensity": intensity}
 
-    raw, calib = _example_recording(cfg, 64)
+    raw, calib = example_recording(cfg, 64)
     return forward, (torch.as_tensor(raw, device=device),
                      torch.as_tensor(calib, device=device))
 
@@ -152,10 +155,14 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
     raw: the whole recording [F, PN, 2·NTS] (F divisible by the world size
     and, for the pp chain's 4 microbatches a data shard, by 4·world/2),
     calib [NTS, 2].
-    Returns {"rank", "world", "backend", "checks_s": this function's wall
-    time, "references_s": the single-device chains', path: {"seconds": the
-    path's wall time on this rank, "k1a": K1a launches in it, "check_s":
-    the time of its reference and comparison}}.
+    Returns {"rank", "world", "backend", on a card "card" (the current
+    device's index) and "uuid" (its UUID), "checks_s": this function's
+    wall time, "references_s": the single-device chains', path:
+    {"seconds": the path's wall time on this rank, "k1a": K1a launches in
+    it, "check_s": the time of its reference and comparison}}; the
+    stateless paths (dp, tp, pp, stft, sp, multihost) also "second_s", a
+    second call's time, and sp "gather_s", a gather of its intensity's
+    shape alone.
     """
     from fmcw_radar_processing_tpu_torch.config import (
         AlgorithmConfig,
@@ -194,21 +201,35 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
     f = raw.shape[0]
     dims = {"strength": 1, "range": 1, "speed": 1}
     report: dict = {"rank": mesh.rank, "world": n, "backend": mesh.backend}
+    if device.type == "cuda":  # the placement: which card this rank holds
+        report["card"] = torch.cuda.current_device()
+        report["uuid"] = str(torch.cuda.get_device_properties(device).uuid)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def timed(path, fn):
-        """fn() from a barrier, device-synced, with K1a's launches counted."""
+    def run(fn):
+        """(fn(), its seconds) from a barrier, device-synced."""
         mesh.barrier()
         sync()
-        _lib.reset_launches()
         t0 = time.perf_counter()
         result = fn()
         sync()
-        report[path] = {"seconds": time.perf_counter() - t0,
-                        "k1a": _lib.LAUNCHES[K1A]}
+        return result, time.perf_counter() - t0
+
+    def timed(path, fn, again=False):
+        """fn() timed by :func:`run`, with K1a's launches counted; with
+        ``again`` a second call too, "second_s" (the first pays the
+        set-up of each communicator and peer link it is the first to use).
+        A line on stderr names the path first: a rank that hangs in a
+        collective until the group's timeout shows where it was."""
+        print(f"[rank {mesh.rank} of {n}] {path}", file=sys.stderr, flush=True)
+        _lib.reset_launches()
+        result, seconds = run(fn)
+        report[path] = {"seconds": seconds, "k1a": _lib.LAUNCHES[K1A]}
+        if again:
+            report[path]["second_s"] = run(fn)[1]
         return result
 
     def checked(path, t0):
@@ -278,7 +299,7 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
         t_path = time.perf_counter()
         chain = make_sharded_frame_chain(cfg, mesh, device)
         local = distribute_frames(raw, mesh, device)
-        out = timed("dp", lambda: chain(local, calib_t))
+        out = timed("dp", lambda: chain(local, calib_t), again=True)
         expect_k1a("dp", 1)
         gathered = gather_to_all(out, mesh, dims)
         check_vs_single(gathered, single, "dp-sharded chain")
@@ -293,7 +314,7 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
         tp_mesh = make_mesh(data=n // 2, model=2)
         chain = make_tp_frame_chain(cfg, tp_mesh, device)
         local = distribute_frames(raw, tp_mesh, device)
-        out = timed("tp", lambda: chain(local, calib_t))
+        out = timed("tp", lambda: chain(local, calib_t), again=True)
         expect_k1a("tp", 0)
         check_vs_single(gather_to_all(out, tp_mesh, dims), exact, "tp chain")
         checked("tp", t_path)
@@ -304,7 +325,7 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
         pp_mesh = make_pp_mesh(n)
         chain = make_pp_frame_chain(cfg, pp_mesh, 4, device)  # M = 4
         local = distribute_frames(raw, pp_mesh, device)
-        out = timed("pp", lambda: chain(local, calib_t))
+        out = timed("pp", lambda: chain(local, calib_t), again=True)
         expect_k1a("pp", 0)
         check_vs_single(gather_to_all(out, pp_mesh, dims), exact, "pp chain")
         checked("pp", t_path)
@@ -319,7 +340,8 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
                                  fs=1.0 / cfg.derived.prt, hop=1)
         sig_t = torch.as_tensor(sig, device=device)
         local = distribute_frames(sig, mesh, device)
-        p, db, _ = timed("stft", lambda: ShardedStft(op=op, mesh=mesh)(local, length))
+        p, db, _ = timed("stft", lambda: ShardedStft(op=op, mesh=mesh)(local, length),
+                          again=True)
         p, db = (gather_to_all({"p": p, "db": db}, mesh, 1)[k] for k in ("p", "db"))
         ref = op(sig_t, valid_len=length).power
         n_cols = length - 20 + 1
@@ -342,7 +364,7 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
         t_path = time.perf_counter()
         cfg256 = RadarConfig.create(cfg.device, AlgorithmConfig(stft_nfft=256))
         sp = ShardedRecordingPipeline(cfg256, mesh, device=device)
-        got = timed("sp", lambda: sp.process(raw, calib))
+        got = timed("sp", lambda: sp.process(raw, calib), again=True)
         expect_k1a("sp", 1)
         ref_cfg = RadarConfig.create(cfg.device, AlgorithmConfig(stft_nfft=256,
                                                                  stft_impl="xla"))
@@ -357,6 +379,12 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
                                  "single-device pipeline (bound 2e-3 where > -120)")
         del got, want
         checked("sp", t_path)
+        # The export's intensity gather on its own: this rank's [bins,
+        # F·PN/n] float32 columns to every rank, on the host.
+        cols = torch.zeros((cfg256.algorithm.max_freq_bins, f * cfg.pn // n),
+                           device=device)
+        report["sp"]["gather_s"] = run(lambda: gather_to_all(cols, mesh, 1))[1]
+        del cols
 
     # 7. The multi-host feed, gather and host-0 call.
     if "multihost" in paths:
@@ -364,7 +392,7 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
         chain = make_sharded_frame_chain(cfg, mesh, device)
         local = distribute_frames(raw, mesh, device)
         gathered = timed("multihost", lambda: gather_to_all(
-            {"waterfall": chain(local, calib_t).waterfall}, mesh))
+            {"waterfall": chain(local, calib_t).waterfall}, mesh), again=True)
         if gathered["waterfall"].shape[0] != f:
             raise AssertionError("multihost: gathered waterfall frames")
         np.testing.assert_allclose(gathered["waterfall"], single.waterfall,
@@ -407,14 +435,20 @@ def run_multichip_checks(device: torch.device | str, raw: np.ndarray,
 
 def _rank_body(rank: int, worlds: tuple, backend: str, device: str, tmp: str,
                fn, threads: int | None, payload=None) -> None:
-    """One rank of :func:`spawn_worlds`: for each world size it belongs to
-    (rank < world), join that world's process group through its
-    FileStore, run fn(payload), write the result, and leave the group."""
+    """One rank of :func:`spawn_worlds`: take its device (the placement
+    rule, :func:`parallel.mesh.rank_device`) and make a card current;
+    then for each world size it belongs to (rank < world), join that
+    world's process group through its FileStore (under NCCL bound to the
+    card), run fn(device, payload), write the result, and leave the
+    group."""
     if threads:
         torch.set_num_threads(threads)
-    dev = torch.device(device)
+    dev = rank_device(device, rank, backend, max(worlds))
+    bind = {}
     if dev.type == "cuda":
-        torch.cuda.set_device(dev.index or 0)
+        torch.cuda.set_device(dev)
+        if backend == "nccl":
+            bind["device_id"] = dev
     if payload is None:
         with open(os.path.join(tmp, "payload.pkl"), "rb") as fh:
             payload = pickle.load(fh)
@@ -423,9 +457,10 @@ def _rank_body(rank: int, worlds: tuple, backend: str, device: str, tmp: str,
             continue
         dist.init_process_group(
             backend, store=dist.FileStore(os.path.join(tmp, f"store{world}"), world),
-            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600))
+            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=600),
+            **bind)
         try:
-            result = fn(payload)
+            result = fn(dev, payload)
             with open(os.path.join(tmp, f"world{world}_rank{rank}.pkl"), "wb") as fh:
                 pickle.dump(result, fh)
         finally:
@@ -435,22 +470,27 @@ def _rank_body(rank: int, worlds: tuple, backend: str, device: str, tmp: str,
 def spawn_worlds(worlds, fn, payload, backend: str = "gloo",
                  device: torch.device | str = "cpu",
                  threads: int | None = None) -> dict:
-    """Run fn(payload) on every rank of a ``backend`` process group at each
-    world size of ``worlds``, and return {world: the results in rank
-    order}.
+    """Run fn(device, payload) on every rank of a ``backend`` process group
+    at each world size of ``worlds``, and return {world: the results in
+    rank order}.
 
     fn is a picklable callable (a module-level function, or a
     ``functools.partial`` of one) that reads its rank and world from the
-    initialized group; its result and ``payload`` must pickle. Ranks are
-    one ``torch.multiprocessing.spawn`` of max(worlds) processes with a
+    initialized group and computes on the rank's ``device``; its result
+    and ``payload`` must pickle. Ranks are one
+    ``torch.multiprocessing.spawn`` of max(worlds) processes with a
     ``FileStore`` in a temporary directory (no TCP port, so concurrent
-    callers cannot collide); each rank joins the worlds it belongs to in
+    callers cannot collide); each rank joins the worlds it is in, in
     turn, paying its start-up once. World 1 alone runs in the calling
     process, with a process group of its own for the call. ``threads``
-    sets each rank's torch threads; ``device`` is the device each rank
-    selects. A failing rank raises here.
+    sets each rank's torch threads. Rank r's device is
+    ``rank_device(device, r, backend, max(worlds))``: under NCCL
+    ``cuda:r``, one card a rank, and RuntimeError here, before any rank
+    starts, when the host has fewer cards than ranks. A failing rank
+    raises here.
     """
     worlds = tuple(worlds)
+    rank_device(device, max(worlds) - 1, backend, max(worlds))  # raises early
     with tempfile.TemporaryDirectory(prefix="fmcw_ranks_") as tmp:
         if worlds == (1,):
             if dist.is_initialized():
@@ -476,8 +516,9 @@ def spawn_worlds(worlds, fn, payload, backend: str = "gloo",
         return results
 
 
-def _checks_on_rank(device: str, checks: dict, recording) -> dict:
-    """:func:`run_multichip_checks` on this rank of the group."""
+def _checks_on_rank(checks: dict, device: torch.device, recording) -> dict:
+    """:func:`run_multichip_checks` on this rank of the group, on its
+    device."""
     return run_multichip_checks(device, *recording, **checks)
 
 
@@ -486,9 +527,13 @@ def dryrun_multichip(n_devices, backend: str = "gloo",
                      frames: int | None = None, recording=None,
                      threads: int | None = None, **checks):
     """Run the multi-chip paths on ``n_devices`` ranks of a ``backend``
-    process group ("gloo", or "nccl" on CUDA), every rank computing on
-    ``device`` (the card unless the caller asks for "cpu"), and check each
-    against the single-device chain (:func:`run_multichip_checks`).
+    process group ("gloo", or "nccl" on CUDA) and check each against the
+    single-device chain (:func:`run_multichip_checks`). ``device`` is the
+    card unless the caller asks for "cpu": under NCCL "cuda" gives rank r
+    ``cuda:r``, and a host with fewer cards than ranks raises RuntimeError
+    ("need N devices, have M") before any rank starts; under gloo every
+    rank takes an indexed device, or spreads over the cards
+    (:func:`parallel.mesh.rank_device`).
 
     recording: (raw [F, PN, 2·NTS], calib [NTS, 2]), or the JAX dryrun's
     two-target recording of ``frames`` frames (default 8 a rank).
@@ -501,6 +546,7 @@ def dryrun_multichip(n_devices, backend: str = "gloo",
     """
     device = resolve_device(device)
     worlds = (n_devices,) if isinstance(n_devices, int) else tuple(n_devices)
+    rank_device(device, max(worlds) - 1, backend, max(worlds))  # before the build
     if recording is None:
         from fmcw_radar_processing_tpu_torch.config import (
             RadarConfig,
@@ -508,12 +554,12 @@ def dryrun_multichip(n_devices, backend: str = "gloo",
         )
 
         cfg = RadarConfig.create(default_device_config())
-        recording = _example_recording(cfg, frames or 8 * max(worlds))
+        recording = example_recording(cfg, frames or 8 * max(worlds))
     raw, calib = (np.asarray(a, np.float32) for a in recording)
     if device.type == "cuda":
         from fmcw_radar_processing_tpu_torch.ops import _lib
 
         _lib.load_kernels()  # build once, not in every rank
-    reports = spawn_worlds(worlds, functools.partial(_checks_on_rank, str(device), checks),
+    reports = spawn_worlds(worlds, functools.partial(_checks_on_rank, checks),
                            (raw, calib), backend, device, threads)
     return reports[worlds[0]] if isinstance(n_devices, int) else reports

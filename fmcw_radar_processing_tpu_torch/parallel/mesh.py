@@ -26,6 +26,8 @@ take CPU tensors only, every collective stages a CUDA operand through a
 host copy and returns its result on the operand's device — in
 :meth:`Mesh._staged`, for all four alike. That staging is what the gloo
 backend costs; it is the caller's choice of backend, not a fallback.
+Which card each process computes on is :func:`rank_device`'s rule: under
+NCCL one card a process, as JAX's mesh holds n distinct devices.
 
 With no process group initialized, :func:`make_mesh` gives the 1-rank
 mesh whose collectives are identities — the JAX package's
@@ -41,6 +43,8 @@ from collections.abc import Sequence
 import torch
 import torch.distributed as dist
 
+from fmcw_radar_processing_tpu_torch.utils.cplx import resolve_device
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -48,6 +52,38 @@ MODEL_AXIS = "model"
 def process_group_ready() -> bool:
     """True when a default process group is initialized."""
     return dist.is_available() and dist.is_initialized()
+
+
+def rank_device(device: torch.device | str, local_rank: int, backend: str,
+                local_world: int) -> torch.device:
+    """The device of the process at ``local_rank`` of the ``local_world``
+    processes of a ``backend`` group on one host — the one placement rule
+    of the spawned ranks (entry.py) and of :func:`multihost.initialize`.
+
+    A CPU device stays as it is. Under NCCL each process has a card of its
+    own, ``cuda:<local_rank>``, as the JAX package's mesh takes n distinct
+    devices: RuntimeError when the host has fewer cards than processes,
+    ValueError for an explicit index (one card cannot hold several NCCL
+    ranks) unless there is one process. Under gloo, which stages every
+    operand through the host, an explicit index serves every process and
+    "cuda" gives ``cuda:<local_rank mod cards>``: all on ``cuda:0`` on a
+    one-card host.
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    have = torch.cuda.device_count()
+    if backend == "nccl":
+        if dev.index is not None and local_world > 1:
+            raise ValueError(f"{dev} cannot hold {local_world} NCCL ranks: pass "
+                             "'cuda' for one card a rank")
+        need = max(local_world, local_rank + 1, (dev.index or 0) + 1)
+        if have < need:
+            raise RuntimeError(f"need {need} devices, have {have}")
+        return dev if dev.index is not None else torch.device("cuda", local_rank)
+    if dev.index is not None:
+        return dev
+    return torch.device("cuda", local_rank % have)
 
 
 class Mesh:

@@ -16,6 +16,8 @@ gather is a device-to-host copy.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -25,6 +27,7 @@ from fmcw_radar_processing_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
     process_group_ready,
+    rank_device,
 )
 
 
@@ -39,6 +42,14 @@ def initialize(coordinator_address: str | None = None,
     such as "tcp://localhost:29500" or "file:///tmp/store"; backend:
     "nccl" (CUDA tensors) or "gloo" (CPU tensors; CUDA operands staged
     through the host by the mesh's collectives).
+
+    Under NCCL the process first takes its own card (:func:`mesh.rank_device`)
+    and makes it current, so that "cuda" means that card from then on (the
+    chains' default, :func:`distribute_frames`), and binds the group to it
+    (``device_id``): the card is ``LOCAL_RANK`` of ``LOCAL_WORLD_SIZE`` where
+    the launcher sets them (torchrun), else ``process_id`` modulo the cards
+    this host shows, processes filling hosts in order. Too few cards raise
+    RuntimeError before the group starts.
     """
     if num_processes is not None and num_processes > 1:
         if coordinator_address is None or process_id is None:
@@ -46,9 +57,25 @@ def initialize(coordinator_address: str | None = None,
                              "and process_id")
         url = (coordinator_address if "://" in coordinator_address
                else f"tcp://{coordinator_address}")
+        bind = {}
+        if backend == "nccl":
+            card = _process_card(num_processes, process_id)
+            torch.cuda.set_device(card)
+            bind["device_id"] = card
         dist.init_process_group(backend, init_method=url,
-                                world_size=num_processes, rank=process_id)
+                                world_size=num_processes, rank=process_id, **bind)
     return dist.get_rank() if process_group_ready() else 0
+
+
+def _process_card(num_processes: int, process_id: int) -> torch.device:
+    """This NCCL process's card (:func:`initialize`)."""
+    if "LOCAL_RANK" in os.environ:
+        local = int(os.environ["LOCAL_RANK"])
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
+    else:
+        have = max(torch.cuda.device_count(), 1)
+        local, local_world = process_id % have, min(num_processes, have)
+    return rank_device("cuda", local, "nccl", local_world)
 
 
 def global_mesh(model: int = 1) -> Mesh:

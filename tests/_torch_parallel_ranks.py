@@ -295,9 +295,10 @@ PARTS = {"collectives": part_collectives, "chains": part_chains,
          "stream": part_stream, "train": part_train}
 
 
-def run_parts(parts: tuple, inputs: dict) -> dict:
+def run_parts(parts: tuple, device, inputs: dict) -> dict:
     """The named parts on this rank of the initialized group, on the
-    test's inputs; their results as one dict of arrays."""
+    test's inputs, on the CPU (the rank's ``device``); their results as
+    one dict of arrays."""
     res: dict = {}
     for name in parts:
         PARTS[name](dist.get_world_size(), inputs, res)

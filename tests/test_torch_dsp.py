@@ -161,6 +161,21 @@ def test_search_peaks_matches_jax(t):
         assert got.idx[2].tolist() == [70, 30, 100]
 
 
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_num_targets_matches_jax(t):
+    """DetectionResult.num_targets: the valid slots of each frame, int32,
+    as JAX's jnp.sum(valid, -1) — on frames with none, one and T."""
+    cfg = _cfg(max_num_targets=t)
+    prof = _profile_with_ties(np.random.default_rng(11), 16, cfg.range_fft_size)
+    prof[4] = 10.0
+    prof[4, 50] = 600.0  # one peak alone
+    got = tdet.search_peaks(torch.as_tensor(prof), cfg).num_targets
+    want = np.asarray(jdet.search_peaks(jnp.asarray(prof), cfg).num_targets)
+    assert got.dtype == torch.int32 and got.shape == (16,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert {0, 1, t} <= set(got.tolist())
+
+
 def test_doppler_and_measurements_match_jax():
     cfg = _cfg(max_num_targets=2)
     rng = np.random.default_rng(4)

@@ -75,9 +75,13 @@ def test_dryrun_multichip(world):
     paths = [p for p in tentry.PATHS if world % 2 == 0 or p not in ("tp", "pp")]
     for r in reports:
         assert (r["world"], r["backend"]) == (world, "gloo")
+        assert "card" not in r and "uuid" not in r  # no card: no placement
         for p in paths:
             assert r[p]["seconds"] > 0 and r[p]["k1a"] == 0, p
+            # the stateless paths are timed a second time too
+            assert (r[p].get("second_s", 0) > 0) == (p not in ("train", "stream")), p
         assert r["sp"]["intensity_max_abs_err_db"] <= 2e-3
+        assert r["sp"]["gather_s"] > 0
 
 
 def test_dryrun_raises_on_a_broken_path(monkeypatch):
