@@ -1,0 +1,96 @@
+"""The least time of each entry's required work on one card.
+
+Bytes: each input byte read once and each output the entry returns written
+once, in the dtype the configuration stores it in. Operations: the
+transforms the function needs, counted as FFTs (5·N·log2 N for a complex
+length-N transform, half that for a real one), plus the log-frequency
+interpolation (3 per output value), against the float32 peak. Neither
+count looks at which kernels run, so a fused, swapped or dropped kernel
+leaves it as it is. The least time is the larger of bytes over the peak
+bandwidth and operations over the peak rate; ``bound`` says which.
+
+Peaks: NVIDIA's data sheet for the H100 SXM (dense, at the 700 W limit).
+"""
+
+from __future__ import annotations
+
+import math
+
+PEAKS = {"bytes_per_s": 3.35e12, "float32_flop_per_s": 67e12}
+DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+
+def fft_flops(n: int, count: int, real: bool = False) -> float:
+    f = 5.0 * n * math.log2(n) * count
+    return f / 2 if real else f
+
+
+def least_seconds(nbytes: float, flops: float) -> tuple[float, str]:
+    tb = nbytes / PEAKS["bytes_per_s"]
+    tf = flops / PEAKS["float32_flop_per_s"]
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _chain(cfg: dict, frames: int) -> tuple[float, float]:
+    """(input bytes, operations) of the per-frame chain over ``frames``."""
+    dev, alg = cfg["device"], cfg["algorithm"]
+    nts, pn = dev["num_samples_per_chirp"], dev["num_chirps_per_frame"]
+    raw = frames * pn * 2 * nts * 4 + 2 * nts * 4
+    ops = (fft_flops(alg["range_fft_size"], frames * pn)
+           + fft_flops(alg["doppler_fft_size"], frames))
+    return raw, ops
+
+
+def _export(cfg: dict, columns: int, nfft: int, db_dtype: str | None,
+            int_dtype: str) -> tuple[float, float]:
+    """(output bytes, operations) of a spectrogram export of ``columns``."""
+    alg = cfg["algorithm"]
+    nb = nfft // 2 + 1
+    out = alg["max_freq_bins"] * columns * DTYPE_BYTES[int_dtype]
+    if db_dtype is not None:
+        out += nb * columns * DTYPE_BYTES[db_dtype]
+    ops = fft_flops(nfft, columns, real=True) + 3 * alg["max_freq_bins"] * columns
+    return out, ops
+
+
+def recording_work(cfg: dict, frames: int, columns: int, ranks: int = 1) -> dict:
+    """One recording through the 'no' entry: raw in; waterfall, range,
+    speed, strength, detected, dB map and intensity out. With ``ranks``
+    the work of one rank (an equal share)."""
+    alg = cfg["algorithm"]
+    k = alg["range_fft_size"]
+    raw, ops = _chain(cfg, frames)
+    sharded = ranks > 1  # the sharded export keeps float32 maps
+    out, eops = _export(cfg, columns, alg["stft_nfft"],
+                        "float32" if sharded else alg["stft_db_store"],
+                        "float32" if sharded else alg["intensity_dtype"])
+    nbytes = raw + frames * (k * 4 + 3 * 4 + 1) + out
+    return {"bytes": nbytes / ranks, "flops": (ops + eops) / ranks}
+
+
+def activity_work(cfg: dict, frames: int, batch_columns: list[int]) -> dict:
+    """One recording through the 'yes' entry: raw in, the batch
+    spectrograms' intensity out."""
+    alg = cfg["algorithm"]
+    raw, ops = _chain(cfg, frames)
+    nbytes = raw
+    for cols in batch_columns:
+        out, eops = _export(cfg, cols, alg["stft_nfft"], None, alg["intensity_dtype"])
+        nbytes += out
+        ops += eops
+    return {"bytes": nbytes, "flops": ops}
+
+
+def stream_window_work(cfg: dict) -> dict:
+    """One streamed window of every channel: raw in; per channel the
+    waterfall, range, speed, strength, detected, and the PSD and dB map
+    over the window's column capacity (float32), out."""
+    dev, alg = cfg["device"], cfg["algorithm"]
+    c, f = cfg["channels"], cfg["window_frames"]
+    pn, k = dev["num_chirps_per_frame"], alg["range_fft_size"]
+    raw, ops = _chain(cfg, f)
+    cols = f * pn
+    nb = cfg["nfft"] // 2 + 1
+    out = f * (k * 4 + 3 * 4 + 1) + 2 * nb * cols * 4
+    ops += fft_flops(cfg["nfft"], cols, real=True)
+    return {"bytes": c * (raw + out), "flops": c * ops}

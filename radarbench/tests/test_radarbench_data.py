@@ -1,0 +1,203 @@
+"""The harness finds cells, configurations, mixes, limits, drivers and
+per-layer metrics by name from data alone, and BENCHMARK.json keeps to the
+benchmark's contract."""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+from radarbench import harness
+from radarbench.tests.conftest import REPO, make_root
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
+
+
+def test_top_level_keys_and_command():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert BENCH["command"] == ["python3", "radarbench/run.py"]
+    assert BENCH["paths"] == ["radarbench"]
+    assert isinstance(BENCH["run_seconds"], int) and 1 <= BENCH["run_seconds"] <= 51
+    assert len(json.dumps(BENCH)) <= 64 * 1024
+
+
+def test_names_units_and_entries():
+    names = [x["name"] for k in ("configs", "workloads", "end_to_end", "per_layer")
+             for x in BENCH[k]]
+    assert len(names) == len(set(names))
+    assert all(NAME.match(n) for n in names)
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["source"].startswith("https://") and 1 <= len(c["source"]) <= 200
+        assert json.loads((REPO / c["file"]).read_text())["name"] == c["name"]
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["traffic"]) and w["chips"] in (1, 4)
+        assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_bounds():
+    for m in BENCH["end_to_end"]:
+        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    assert any(m["name"] == "setup_s" and "workloads" not in m for m in BENCH["end_to_end"])
+
+
+DEFERRED = json.loads((REPO / "radarbench" / "deferred.json").read_text())
+
+
+def _resolves_by_name(bench, cell):
+    w = bench.cell(cell)
+    cfg = bench.config(w["config"])
+    traffic = bench.traffic(w["traffic"])
+    assert cfg["chips"] == w["chips"]
+    assert hasattr(bench.driver(traffic["driver"]), "Driver")
+    e2e = [m["name"] for m in bench.end_to_end(cell)]
+    assert "setup_s" in e2e and len(e2e) >= 2
+    layer = bench.per_layer(cell)
+    assert layer and all(m["moves"] in e2e for m in layer)
+    for m in layer:
+        assert callable(bench.reader(m["name"]))
+    limits = bench.limits(cell)
+    assert limits and all(isinstance(v, (int, float)) and math.isfinite(v)
+                          for v in limits.values())
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_resolves_by_name(cell):
+    _resolves_by_name(harness.Bench(REPO), cell)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in DEFERRED["workloads"]])
+def test_every_deferred_cell_resolves_by_name_once_put_back(cell, tmp_path):
+    assert cell not in {w["name"] for w in BENCH["workloads"]}
+    _resolves_by_name(harness.Bench(make_root(tmp_path / "checkout", tiny=False)), cell)
+
+
+def test_per_layer_workloads_name_cells():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["per_layer"]:
+        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
+        assert set(m["workloads"]) <= cells
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+
+
+def test_configs_state_the_programs_production_profile():
+    from fmcw_radar_processing_tpu_torch.config.radar import (
+        AlgorithmConfig,
+        default_device_config,
+    )
+
+    for c in BENCH["configs"]:
+        cfg = json.loads((REPO / c["file"]).read_text())
+        assert cfg["algorithm"] == dataclasses.asdict(AlgorithmConfig.production())
+        assert cfg["device"] == dataclasses.asdict(default_device_config())
+        assert cfg["reduced"] == c["reduced"]
+
+
+DUMMY_DRIVER = '''
+import time
+
+
+class Driver:
+    def __init__(self, cfg, traffic, seed, device, out_dir, variant="program"):
+        self.cfg, self.traffic, self.seed = cfg, traffic, seed
+        self.attempted = self.failed = 0
+
+    def setup(self):
+        self.items = [self.seed + i for i in range(self.cfg["size"])]
+
+    def device_info(self):
+        return {"platform": "cpu", "kind": "cpu", "count": 1}
+
+    def window(self, seconds):
+        t0, n = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            n += sum(self.items) > 0
+        self.attempted = n
+        return {"dummy_items_per_s": n / (time.perf_counter() - t0)}
+
+    def pre_trace(self):
+        return {}
+
+    def traced(self, path):
+        open(path, "w").write('{"traceEvents": []}')
+        self.attempted = self.traffic["trace_items"]
+        return {"items": self.attempted, "window_s": 0.1, "spans": {"sum": 2.0}}
+
+    def memory_peak(self):
+        return 0
+
+    def free(self):
+        pass
+
+    def check(self):
+        return {"sum_faults": int(sum(self.items) != self.cfg["size"] * self.seed
+                                  + self.cfg["size"] * (self.cfg["size"] - 1) // 2)}
+
+    def close(self):
+        pass
+'''
+
+
+def _digest(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_a_dummy_cell_added_as_new_files_runs(tmp_path):
+    root = make_root(tmp_path / "checkout")
+    before = _digest(root)
+    rb = root / "radarbench"
+    (rb / "configs" / "dummy.json").write_text(json.dumps({"name": "dummy", "chips": 1,
+                                                           "size": 3}))
+    (rb / "traffic" / "count.json").write_text(json.dumps({"driver": "dummy",
+                                                           "trace_items": 2}))
+    (rb / "drivers" / "dummy.py").write_text(DUMMY_DRIVER)
+    (rb / "metrics" / "dummy.sum_ms.py").write_text(
+        "def read(ctx):\n    return 1e3 * ctx['spans']['sum'] / ctx['items']\n")
+    (rb / "limits" / "dummy.count.json").write_text(json.dumps({"limits": {"sum_faults": 0}}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "dummy", "source": "https://example.org/dummy",
+                            "file": "radarbench/configs/dummy.json", "reduced": [],
+                            "why": "a dummy"})
+    spec["workloads"].append({"name": "dummy.count", "config": "dummy", "traffic": "count",
+                              "chips": 1, "why": "a dummy cell"})
+    spec["end_to_end"].append({"name": "dummy_items_per_s", "unit": "items/s",
+                               "better": "higher", "bound": 0.05, "source": "host_clock",
+                               "workloads": ["dummy.count"]})
+    spec["per_layer"].append({"name": "dummy.sum_ms", "unit": "ms", "better": "lower",
+                              "source": "program_span", "layer": "dummy",
+                              "moves": "dummy_items_per_s", "workloads": ["dummy.count"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    after = _digest(root)
+    changed = {k for k in before if before[k] != after.get(k)}
+    assert changed == {"BENCHMARK.json"}  # no file of the harness was edited
+
+    r = harness.run_cell(root, "dummy.count", 5, 0.05, False, "cpu")
+    assert r["correct"] and set(r["metrics"]) == {"dummy_items_per_s", "setup_s"}
+    assert r["checks"] == {"sum_faults": {"value": 0, "limit": 0}}
+    r = harness.run_cell(root, "dummy.count", 5, 0.05, True, "cpu")
+    assert r["metrics"] == {"dummy.sum_ms": {"value": 1000.0, "unit": "ms"}}
+    assert list(r)[-1] == "checks"
+
+
+def test_judge_needs_every_limit_met():
+    assert harness.judge({"a": 0, "b": 0.5}, {"a": 0, "b": 1.0})[0]
+    assert not harness.judge({"a": 1, "b": 0.5}, {"a": 0, "b": 1.0})[0]
+    assert not harness.judge({"a": 0}, {"a": 0, "b": 1.0})[0]
+    assert not harness.judge({"a": 0, "b": float("nan")}, {"a": 0, "b": 1.0})[0]
