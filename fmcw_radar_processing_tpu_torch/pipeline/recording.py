@@ -47,7 +47,7 @@ from fmcw_radar_processing_tpu_torch.utils.cplx import (
     resolve_device,
     to_pair,
 )
-from fmcw_radar_processing_tpu_torch.utils.observe import NullTimer
+from fmcw_radar_processing_tpu_torch.utils.observe import NullTimer, span
 
 _STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int8": torch.int8}
@@ -132,12 +132,13 @@ class RadarPipeline:
     def _device_inputs(self, raw: np.ndarray, calib: np.ndarray):
         """raw as flat pair rows [F, PN, 2·NTS] and calib as a pair
         [NTS, 2], float32 on the pipeline's device."""
-        raw = _normalize_raw(raw, self.cfg.nts)
-        calib = np.asarray(calib)
-        if np.iscomplexobj(calib) or calib.ndim == 1:
-            calib = to_pair(calib)
-        return (torch.as_tensor(raw, dtype=torch.float32).to(self.device),
-                torch.as_tensor(calib, dtype=torch.float32).to(self.device))
+        with span("recording.upload"):
+            raw = _normalize_raw(raw, self.cfg.nts)
+            calib = np.asarray(calib)
+            if np.iscomplexobj(calib) or calib.ndim == 1:
+                calib = to_pair(calib)
+            return (torch.as_tensor(raw, dtype=torch.float32).to(self.device),
+                    torch.as_tensor(calib, dtype=torch.float32).to(self.device))
 
     def run_chain(self, raw: np.ndarray, calib: np.ndarray) -> FrameChainOutputs:
         """Run the per-frame chain.
@@ -154,7 +155,8 @@ class RadarPipeline:
         trimmed to the valid columns, or None if shorter than one window.
 
         timer stages: "stft" (the device export, synced) and "host_decode"
-        (device-to-host copies and widening to float32)."""
+        (device-to-host copies, span "recording.decode_copy", then widening
+        to float32, span "recording.decode_widen")."""
         tm = timer if timer is not None else NullTimer()
         a = self.cfg.algorithm
         wl = a.stft_window_length
@@ -200,12 +202,15 @@ class RadarPipeline:
                              else intensity.to(int_dtype))
             tm.observe((db, intensity))
         with tm.stage("host_decode", items=n_valid):
-            intensity = intensity[:, :n_valid].cpu()
-            if a.intensity_dtype == "int8":
-                intensity_np = decode_db_int8(intensity)
-            else:  # bf16/f32 copied in the store dtype, widened on the host
-                intensity_np = intensity.to(torch.float32).numpy()
-            db_np = db[:, :n_valid].cpu().to(torch.float32).numpy()
+            with span("recording.decode_copy"):
+                intensity = intensity[:, :n_valid].cpu()
+                db = db[:, :n_valid].cpu()
+            with span("recording.decode_widen"):
+                if a.intensity_dtype == "int8":
+                    intensity_np = decode_db_int8(intensity)
+                else:  # bf16/f32 copied in the store dtype, widened on the host
+                    intensity_np = intensity.to(torch.float32).numpy()
+                db_np = db.to(torch.float32).numpy()
         # Segment-centre times (t·hop + W/2)/fs, × the float32 reciprocal of
         # fs: what XLA makes of the JAX package's division by a constant.
         times = ((np.arange(n_valid, dtype=np.float32) * np.float32(op.hop)
@@ -228,7 +233,8 @@ class RadarPipeline:
             out = self.run_chain(raw, calib)
             signal, count_dev = pack_slow_time(out.strongest_chirps,
                                                out.detected, cfg.pn)
-            count = int(count_dev)  # the single host sync of the pipeline
+            with span("recording.chain_wait"):
+                count = int(count_dev)  # the single host sync of the pipeline
 
         spec = self._spectrogram_of_signal(signal, count, tm)
         if spec is None:

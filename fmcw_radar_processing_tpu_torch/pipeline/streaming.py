@@ -42,6 +42,7 @@ from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
     pack_slow_time,
 )
 from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, resolve_device
+from fmcw_radar_processing_tpu_torch.utils.observe import span
 
 DB_MODES = ("per_window", "running_max")
 
@@ -115,26 +116,35 @@ class StreamingProcessor:
         a mesh, either every channel (this rank takes its own) or this
         rank's C/n channels.
         """
-        dev, wl = self.device, self._wl
+        dev = self.device
         c0, nc = self.first_channel, self.local_channels
-        if raw.shape[0] == self.channels and nc != self.channels:
-            raw, calib = raw[c0:c0 + nc], calib[c0:c0 + nc]
-        raw = torch.as_tensor(raw, dtype=torch.float32, device=dev)
-        calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
-        if raw.ndim == 5:
-            raw = raw.reshape(*raw.shape[:3], -1)
-        if raw.shape[0] != nc or calib.shape[0] != nc:
-            raise ValueError(f"expected {nc} channels, got raw "
-                             f"{tuple(raw.shape)}, calib {tuple(calib.shape)}")
-        raw = raw.contiguous()
+        with span("stream.upload"):
+            if raw.shape[0] == self.channels and nc != self.channels:
+                raw, calib = raw[c0:c0 + nc], calib[c0:c0 + nc]
+            raw = torch.as_tensor(raw, dtype=torch.float32, device=dev)
+            calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
+            if raw.ndim == 5:
+                raw = raw.reshape(*raw.shape[:3], -1)
+            if raw.shape[0] != nc or calib.shape[0] != nc:
+                raise ValueError(f"expected {nc} channels, got raw "
+                                 f"{tuple(raw.shape)}, calib {tuple(calib.shape)}")
+            raw = raw.contiguous()
         outs, mags, counts = [], [], []
         for c in range(nc):
-            out = self._chain(raw[c], calib[c])
-            sig, count = pack_slow_time(out.strongest_chirps, out.detected,
-                                        self.cfg.pn)
-            outs.append(out)
-            mags.append(pair_abs(sig))  # [F·PN], valid in [0, count)
-            counts.append(count)
+            with span("stream.chain"):
+                out = self._chain(raw[c], calib[c])
+                sig, count = pack_slow_time(out.strongest_chirps, out.detected,
+                                            self.cfg.pn)
+                outs.append(out)
+                mags.append(pair_abs(sig))  # [F·PN], valid in [0, count)
+                counts.append(count)
+        with span("stream.stft"):
+            return self._stft_tail(outs, mags, counts)
+
+    def _stft_tail(self, outs, mags, counts) -> StreamingWindowResult:
+        """The window's batched STFT over the channels' packed streams, its
+        dB, the carry and max for the next window, and the results."""
+        dev, wl = self.device, self._wl
         mag = torch.stack(mags)  # [C, F·PN]
         count = torch.stack(counts)  # [C]
         carry_len = self._carry_len

@@ -34,6 +34,7 @@ def cmd_process(args) -> int:
     )
     from fmcw_radar_processing_tpu_torch.serve.handler import load_recording
     from fmcw_radar_processing_tpu_torch.utils.observe import (
+        PROFILED,
         NullTimer,
         StageTimer,
         trace,
@@ -85,6 +86,7 @@ def cmd_process(args) -> int:
         print(timer.pretty())
     if args.trace_dir:
         print(f"profiler trace in {args.trace_dir}")
+        print(PROFILED.pretty())  # the spans of the traced call, with counts
     return 0
 
 

@@ -1,10 +1,18 @@
-"""Stage timers (wall-clock per pipeline stage, synced to the device), a
-profiler trace and structured event lines.
+"""Stage timers (wall-clock per pipeline stage, synced to the device),
+spans on the profiler's clock, a profiler trace and structured event lines.
 
 CUDA launches return before the card finishes, so a stage's clock stops
 only after the work it queued has run: :func:`_sync` calls
 ``torch.cuda.synchronize()`` when the observed value holds a CUDA tensor.
 (The JAX package's sync blocks only on jax arrays.)
+
+:func:`span` marks a region of program code. While no ``torch.profiler``
+profile records, it costs one flag read and does nothing; while one does,
+the region is a ``record_function`` annotation (a ``user_annotation``
+event on the clock of the kernels and copies in the Chrome trace) and its
+host seconds and count go to :data:`PROFILED`. A span never synchronizes
+the device: its seconds are host time, device work included only where
+the code inside already waits for it.
 """
 
 from __future__ import annotations
@@ -13,10 +21,12 @@ import contextlib
 import dataclasses
 import json
 import sys
+import threading
 import time
-from typing import Any, Iterator
+from typing import Any, ContextManager, Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _cuda_devices(value: Any) -> set[torch.device]:
@@ -42,6 +52,7 @@ def _sync(value: Any) -> None:
 class StageRecord:
     seconds: float
     items: int | None = None
+    count: int = 1  # runs of the stage summed into ``seconds``
 
     @property
     def items_per_s(self) -> float | None:
@@ -64,23 +75,32 @@ class StageTimer:
     def __init__(self) -> None:
         self.records: dict[str, StageRecord] = {}
         self._pending: Any = None
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int | None = None) -> Iterator[None]:
-        self._pending = None
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self._pending is not None:
-                _sync(self._pending)
-                self._pending = None
-            dt = time.perf_counter() - t0
+        """Time the enclosed block as stage ``name``; under the profiler
+        the block, sync included, is also ``span(name)``."""
+        with span(name):
+            self._pending = None
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if self._pending is not None:
+                    _sync(self._pending)
+                    self._pending = None
+                self.add(name, time.perf_counter() - t0, items)
+
+    def add(self, name: str, seconds: float, items: int | None = None) -> None:
+        """Add one run of stage ``name``: repeated runs accumulate."""
+        with self._lock:
             prev = self.records.get(name)
             if prev is None:
-                self.records[name] = StageRecord(dt, items)
-            else:  # accumulate across repeated runs of the same stage
-                prev.seconds += dt
+                self.records[name] = StageRecord(seconds, items)
+            else:
+                prev.seconds += seconds
+                prev.count += 1
                 if items is not None:
                     prev.items = (prev.items or 0) + items
 
@@ -98,6 +118,7 @@ class StageTimer:
         out = {}
         for name, r in self.records.items():
             row: dict[str, Any] = {
+                "count": r.count,
                 "seconds": round(r.seconds, 6),
                 "share": round(r.seconds / total, 4),
             }
@@ -108,26 +129,61 @@ class StageTimer:
         return out
 
     def pretty(self) -> str:
-        rows = [f"{'stage':<24}{'seconds':>10}{'share':>8}{'items/s':>14}"]
+        rows = [f"{'stage':<24}{'count':>7}{'seconds':>10}{'share':>8}{'items/s':>14}"]
         for name, row in self.report().items():
             ips = row.get("items_per_s")
             rows.append(
-                f"{name:<24}{row['seconds']:>10.4f}{row['share']:>8.1%}"
+                f"{name:<24}{row['count']:>7}{row['seconds']:>10.4f}{row['share']:>8.1%}"
                 f"{(f'{ips:,.0f}' if ips is not None else '—'):>14}"
             )
-        rows.append(f"{'total':<24}{self.total_seconds:>10.4f}")
+        rows.append(f"{'total':<31}{self.total_seconds:>10.4f}")
         return "\n".join(rows)
 
 
 class NullTimer:
-    """No-op StageTimer stand-in — lets pipelines take ``timer=None``."""
+    """No-op StageTimer stand-in — lets pipelines take ``timer=None``. Its
+    stages are still spans."""
 
-    @contextlib.contextmanager
-    def stage(self, name: str, items: int | None = None) -> Iterator[None]:
-        yield
+    def stage(self, name: str, items: int | None = None) -> ContextManager[None]:
+        return span(name)
 
     def observe(self, value: Any) -> Any:
         return value
+
+
+PROFILED = StageTimer()
+"""Host seconds and count of every span, by name, over the newest stretch
+of spans opened under the profiler. It is cleared when a span opens under
+the profiler after a span opened without it, so an untraced call between
+two profiled stretches leaves only the second."""
+
+_NO_SPAN = contextlib.nullcontext()
+_unprofiled_span_since = True  # since the last span opened under the profiler
+
+
+def span(name: str) -> ContextManager[None]:
+    """Mark the enclosed region of program code as ``name``: a shared no-op
+    after one flag read while no profiler records, else a
+    ``record_function`` annotation whose host seconds go to PROFILED."""
+    global _unprofiled_span_since
+    if not _autograd_profiler._is_profiler_enabled:
+        _unprofiled_span_since = True
+        return _NO_SPAN
+    if _unprofiled_span_since:
+        _unprofiled_span_since = False
+        with PROFILED._lock:
+            PROFILED.records.clear()
+    return _profiled_span(name)
+
+
+@contextlib.contextmanager
+def _profiled_span(name: str) -> Iterator[None]:
+    with _autograd_profiler.record_function(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            PROFILED.add(name, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager

@@ -116,8 +116,10 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_cli_process_trace_dir(tmp_path, capsys):
-    """process --trace-dir writes the trace and the payloads; a directory
-    that cannot be created is an error (exit 1), as in the JAX CLI."""
+    """process --trace-dir writes the trace and the payloads, and prints
+    the table of the traced call's spans, each recording.* span once, as
+    in the trace's annotations; a directory that cannot be created is an
+    error (exit 1), as in the JAX CLI."""
     base = str(tmp_path / "rec")
     assert cli(["synth", base, "--frames", "8"]) == 0
     out, tr = str(tmp_path / "out"), str(tmp_path / "tr")
@@ -125,7 +127,16 @@ def test_cli_process_trace_dir(tmp_path, capsys):
                 "--trace-dir", tr, "--compact-json"]) == 0
     assert len(os.listdir(tr)) == 1
     assert "spectrogram_data.json" in os.listdir(out)
-    assert f"profiler trace in {tr}" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert f"profiler trace in {tr}" in printed
+    table = printed.split(f"profiler trace in {tr}\n", 1)[1].splitlines()
+    with open(os.path.join(tr, os.listdir(tr)[0])) as f:
+        events = json.load(f)["traceEvents"]
+    annotated = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for name in ("recording.upload", "recording.chain_wait",
+                 "recording.decode_copy", "recording.decode_widen"):
+        assert annotated.count(name) == 1, name
+        assert any(row.split()[:2] == [name, "1"] for row in table), name
     blocker = tmp_path / "file"
     blocker.write_text("")
     bad = str(blocker / "trace")

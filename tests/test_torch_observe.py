@@ -1,0 +1,349 @@
+"""PyTorch port: spans on the profiler's clock (utils/observe.py::span) and
+the collector that the benchmark's span metrics read.
+
+Without a profiler a span opens no ``record_function``, syncs nothing and
+leaves the collector alone; under ``torch.profiler`` it is a
+``user_annotation`` event of its name in the Chrome trace, with host
+seconds and a count in ``PROFILED``. The recording and streaming paths
+record each of their spans as often as the work runs and give the same
+results with the profiler on as off. Runs on the CPU; the one ``cuda``
+test checks on the card that a window with device-resident inputs makes
+no host synchronization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from fmcw_radar_processing_tpu_torch.config import (
+    AlgorithmConfig,
+    RadarConfig,
+    default_device_config,
+)
+from fmcw_radar_processing_tpu_torch.io.synth import SyntheticTarget, synthesize_recording
+from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
+from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
+from fmcw_radar_processing_tpu_torch.utils import observe
+from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+from fmcw_radar_processing_tpu_torch.utils.observe import PROFILED, StageTimer, span
+
+REPO = Path(__file__).resolve().parents[1]
+RECORDING_SPANS = ("recording.upload", "recording.chain_wait",
+                   "recording.decode_copy", "recording.decode_widen")
+STAGES = ("frame_chain", "stft", "host_decode", "payload_build")
+METRICS = {  # reader (radarbench/metrics/<name>.py) -> the span it reads
+    "recording.upload_host_ms": "recording.upload",
+    "recording.chain_wait_ms": "recording.chain_wait",
+    "recording.decode_copy_ms": "recording.decode_copy",
+    "recording.decode_widen_ms": "recording.decode_widen",
+    "stream.upload_host_ms": "stream.upload",
+    "stream.chain_dispatch_ms": "stream.chain",
+    "stream.stft_dispatch_ms": "stream.stft",
+}
+TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
+           SyntheticTarget(range_m=16.9, doppler_bin_offset=-2))
+
+
+@pytest.fixture(autouse=True)
+def _fresh_collector(monkeypatch):
+    """One torch thread, and the collector as a new process finds it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    PROFILED.records.clear()
+    monkeypatch.setattr(observe, "_unprofiled_span_since", True)
+    yield
+    PROFILED.records.clear()
+    torch.set_num_threads(n)
+
+
+class _Profiled:
+    """``torch.profiler.profile`` on the CPU whose Chrome trace, written on
+    exit, is read back as {annotation name: count}."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        self.annotations: dict[str, int] = {}
+
+    def __enter__(self):
+        self.prof = profile(activities=[ProfilerActivity.CPU])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        if exc[0] is None:
+            self.prof.export_chrome_trace(self.path)
+            self.annotations = _annotations(self.path)
+        return False
+
+
+def _annotations(path) -> dict[str, int]:
+    with open(path) as f:
+        raw = json.load(f)
+    events = raw["traceEvents"] if isinstance(raw, dict) else raw
+    out: dict[str, int] = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def _forbid(what):
+    def boom(*a, **k):
+        raise AssertionError(f"{what} called")
+    return boom
+
+
+def _forbid_annotations(monkeypatch):
+    for mod in (torch.autograd.profiler, torch.profiler):
+        monkeypatch.setattr(mod, "record_function", _forbid("record_function"))
+
+
+@pytest.fixture
+def no_annotation_no_sync(monkeypatch):
+    """record_function and torch.cuda.synchronize raise when called."""
+    _forbid_annotations(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize", _forbid("synchronize"))
+
+
+def _recording(frames, algo):
+    cfg = RadarConfig.create(default_device_config(), algo)
+    rec = synthesize_recording(cfg, frames, TARGETS, seed=frames)
+    return cfg, rec.frames[:, 0], rec.calib_vector(0, cfg.nts)
+
+
+def _windows(cfg, channels, windows, frames, seed):
+    """``windows`` windows of ``channels`` channels, [C, F, PN, 2·NTS] each,
+    and the channels' [C, NTS, 2] calibration."""
+    raws, cals = [], []
+    for c in range(channels):
+        rec = synthesize_recording(cfg, windows * frames, TARGETS[c % 2:c % 2 + 1],
+                                   seed=seed + c)
+        raws.append(to_pair(rec.frames[:, 0]).reshape(windows, frames, cfg.pn, -1))
+        cals.append(to_pair(rec.calib_vector(0, cfg.nts)))
+    raw = np.stack(raws, axis=1).astype(np.float32)
+    return [np.ascontiguousarray(w) for w in raw], np.stack(cals).astype(np.float32)
+
+
+# --- the primitive ------------------------------------------------------------
+
+
+def test_span_without_profiler_touches_nothing(no_annotation_no_sync):
+    """No profiler: one shared no-op, no record_function, no sync, and the
+    collector stays empty; a StageTimer still times its stages."""
+    assert span("a") is span("b")
+    with span("a"):
+        pass
+    timer = StageTimer()
+    with timer.stage("s", items=3):
+        pass
+    assert PROFILED.records == {}
+    assert (timer.records["s"].items, timer.records["s"].count) == (3, 1)
+
+
+def test_span_under_profiler_is_an_annotation(tmp_path):
+    with _Profiled(tmp_path / "t.json") as p:
+        for _ in range(3):
+            with span("outer"):
+                with span("inner"):
+                    torch.ones(4).sum()
+    assert p.annotations["outer"] == 3 and p.annotations["inner"] == 3
+    outer, inner = PROFILED.records["outer"], PROFILED.records["inner"]
+    assert (outer.count, inner.count) == (3, 3)
+    assert outer.seconds >= inner.seconds > 0
+
+
+@pytest.mark.parametrize("between", [True, False])
+def test_collector_holds_the_newest_profiled_stretch(tmp_path, between):
+    """An unprofiled span between two profiled stretches clears the
+    collector at the second stretch's first span; without one, the
+    stretches accumulate."""
+    with _Profiled(tmp_path / "1.json"):
+        with span("first"):
+            pass
+        with span("both"):
+            pass
+    if between:
+        with span("untraced"):
+            pass
+    with _Profiled(tmp_path / "2.json"):
+        with span("both"):
+            pass
+    if between:
+        assert set(PROFILED.records) == {"both"}
+        assert PROFILED.records["both"].count == 1
+    else:
+        assert set(PROFILED.records) == {"first", "both"}
+        assert PROFILED.records["both"].count == 2
+
+
+def test_stage_names_in_trace_and_records_unchanged(tmp_path):
+    """A StageTimer's stage is a span of its name; the timer's own records
+    (items, counts) are the same with the profiler on as off."""
+    def run():
+        timer = StageTimer()
+        for _ in range(2):
+            with timer.stage("s1", items=4):
+                torch.ones(8).cumsum(0)
+            with timer.stage("s2"):
+                pass
+        return timer
+
+    off = run()
+    with _Profiled(tmp_path / "t.json") as p:
+        on = run()
+    assert p.annotations["s1"] == 2 and p.annotations["s2"] == 2
+    assert {k: (r.items, r.count) for k, r in on.records.items()} == {
+        k: (r.items, r.count) for k, r in off.records.items()} == {
+        "s1": (8, 2), "s2": (None, 2)}
+    assert PROFILED.records["s1"].count == 2
+    assert "count" in on.pretty().splitlines()[0]
+
+
+# --- the program's spans --------------------------------------------------------
+
+
+def _assert_same(a, b, where="out"):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, float) and np.isnan(a):
+        assert np.isnan(b), where
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("algo", ["fidelity", "production", "int8"])
+@pytest.mark.parametrize("frames", [8, 64])
+def test_process_recording_spans_once_and_outputs_identical(tmp_path, frames, algo):
+    """Each recording.* span and each stage once a call under the profiler;
+    every output, payloads included, bit-identical to an unprofiled call."""
+    production = AlgorithmConfig.production()
+    algos = {"fidelity": AlgorithmConfig(), "production": production,
+             "int8": dataclasses.replace(production, intensity_dtype="int8")}
+    cfg, raw, calib = _recording(frames, algos[algo])
+    pipe = RadarPipeline(cfg, device="cpu")
+    want = pipe.process_recording(raw, calib, timer=StageTimer())
+    assert want.spectrogram_intensity.shape[1] > 0
+    with _Profiled(tmp_path / "t.json") as p:
+        got = pipe.process_recording(raw, calib, timer=StageTimer())
+    for name in RECORDING_SPANS + STAGES:
+        assert p.annotations.get(name) == 1, name
+    assert {k: r.count for k, r in PROFILED.records.items()} == {
+        n: 1 for n in RECORDING_SPANS + STAGES}
+    _assert_same(dataclasses.asdict(got), dataclasses.asdict(want))
+
+
+@pytest.mark.parametrize("channels", [2, 4])
+def test_process_window_spans_and_results(tmp_path, channels):
+    """stream.chain once a channel, stream.upload and stream.stft once a
+    window; results equal those of an unprofiled processor fed the same
+    windows."""
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    windows, calib = _windows(cfg, channels, 3, 8, seed=channels)
+    procs = [StreamingProcessor(cfg, channels, 8, device="cpu", nfft=64)
+             for _ in range(2)]
+    want = [procs[0].process_window(w, calib) for w in windows]
+    with _Profiled(tmp_path / "t.json") as p:
+        got = [procs[1].process_window(w, calib) for w in windows]
+    counts = {"stream.upload": 3, "stream.chain": 3 * channels, "stream.stft": 3}
+    assert {k: p.annotations.get(k) for k in counts} == counts
+    assert {k: r.count for k, r in PROFILED.records.items()} == counts
+    for g, w in zip(got, want):
+        for field in w._fields:
+            torch.testing.assert_close(getattr(g, field), getattr(w, field),
+                                       rtol=0, atol=0, equal_nan=True)
+
+
+def test_paths_open_no_annotation_and_no_sync_without_profiler(no_annotation_no_sync):
+    """With no profiler the recording and the streaming paths open no
+    record_function and call no device sync (both raise here)."""
+    cfg, raw, calib = _recording(8, AlgorithmConfig.production())
+    RadarPipeline(cfg, device="cpu").process_recording(raw, calib, timer=StageTimer())
+    windows, cal = _windows(cfg, 2, 2, 8, seed=1)
+    proc = StreamingProcessor(cfg, 2, 8, device="cpu", nfft=64)
+    for w in windows:
+        proc.process_window(w, cal)
+    assert PROFILED.records == {}
+
+
+# --- the benchmark's readers of the spans ---------------------------------------
+
+
+def _reader(metric):
+    path = REPO / "radarbench" / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location("metric_" + metric.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("metric", sorted(METRICS))
+def test_span_metric_reads_the_collector(metric, monkeypatch):
+    """seconds / items in ms from a filled collector; None from an empty
+    one, and from a program without the collector."""
+    read = _reader(metric)
+    ctx = {"items": 4, "spans": {}}
+    assert read(ctx) is None
+    PROFILED.add(METRICS[metric], 0.25)
+    PROFILED.add(METRICS[metric], 0.75)
+    PROFILED.add("another.span", 9.0)
+    assert read(ctx) == pytest.approx(1e3 * 1.0 / 4, rel=1e-12)
+    monkeypatch.delattr(observe, "PROFILED")
+    assert read(ctx) is None
+
+
+def test_every_span_metric_is_declared():
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    declared = {m["name"]: m for m in spec["per_layer"]}
+    for metric in METRICS:
+        m = declared[metric]
+        assert (m["source"], m["unit"], m["better"]) == ("program_span", "ms", "lower")
+        assert m["workloads"] == ["production-65k.recording" if metric.startswith(
+            "recording.") else "stream-8ch.windows"]
+
+
+# --- on the card ------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_window_on_card_makes_no_host_sync(monkeypatch):
+    """Once warm, a window whose inputs lie on the card runs under the sync
+    debug mode "error" with the profiler off, opening no record_function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul
+
+    pin_f32_matmul()
+    dev = torch.device("cuda")
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    windows, calib = _windows(cfg, 8, 3, 256, seed=7)
+    windows = [torch.as_tensor(w, device=dev) for w in windows]
+    calib = torch.as_tensor(calib, device=dev)
+    proc = StreamingProcessor(cfg, 8, 256, device=dev, nfft=256)
+    proc.process_window(windows[0], calib)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    _forbid_annotations(monkeypatch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for w in windows[1:]:
+            res = proc.process_window(w, calib)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert res.psd_db.shape[0] == 8 and PROFILED.records == {}
