@@ -680,7 +680,8 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     """[stream] The streaming processor at bench.py's 5_streaming_8ch shape
     (production profile, 8 channels, 256-frame windows, nfft 256), fed 4
     windows of a 1,024-frame recording per channel: counted launches, the
-    first window against the CPU plain path, window-split invariance,
+    first two windows (eager, then replayed from the CUDA graphs) against
+    the CPU plain path, window-split invariance,
     injected targets, and the steady-state window latency."""
     from fmcw_radar_processing_tpu_torch import SyntheticTarget, synthesize_recording
     from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR
@@ -743,38 +744,43 @@ def stream_phase(dev, cfg, lib, channels=STREAM_CHANNELS,
     print(f"[stream] ranges and speeds equal the injected targets in all "
           f"{n_det} detected frames of {channels * frames}")
 
-    # The first window against the port's CPU plain path on the same input
-    # (its chain's "auto" is the exact profile there, K1a's bf16x3 here: the
-    # waterfall is held to 100 dB, detections, ranges and speeds exactly).
-    want = StreamingProcessor(cfg, channels, window, "cpu").process_window(
-        raw[:, :window], cal)
-    g0 = got[0]
-    check(torch.equal(g0.detected.cpu(), want.detected)
-          and torch.equal(g0.col_count.cpu(), want.col_count), "first window: "
-          "detected, col_count exact")
-    w_snr = snr_db(g0.waterfall.cpu(), want.waterfall)
-    check(w_snr >= 100.0, f"first window: waterfall {w_snr:.2f} dB >= 100 dB")
-    for name, atol in (("range", 0.0), ("speed", 1e-7)):
-        a, b = getattr(g0, name).cpu(), getattr(want, name)
-        check(torch.equal(a.isnan(), b.isnan())
-              and torch.allclose(a, b, rtol=1e-6, atol=atol, equal_nan=True),
-              f"first window: {name} rtol 1e-6")
-    p, pw = g0.psd.cpu(), want.psd
-    scale = pw.amax(dim=(-2, -1), keepdim=True)
-    psd_err = float(((p - pw).abs() / scale).max())
-    check(psd_err <= 1e-4, "first window: psd within 1e-4 of the max")
-    db, dbw = g0.psd_db.cpu(), want.psd_db
-    check(torch.equal(db == DB_FLOOR, dbw == DB_FLOOR), "first window: floors")
-    db_err = {lvl: float((db - dbw).abs()[dbw > lvl].max()) for lvl in (-100, -120)}
-    check(db_err[-100] <= 1e-3 and db_err[-120] <= 2e-3,
-          "first window: psd_db within 1e-3 dB above -100 dB, 2e-3 above -120")
-    for name in ("norm_power", "carry"):
-        check(torch.allclose(getattr(g0, name).cpu(), getattr(want, name),
-                             rtol=1e-5, atol=0), f"first window: {name} rtol 1e-5")
-    print(f"[stream] first window on cuda = the CPU plain path: waterfall "
-          f"{w_snr:.2f} dB SNR (tol 100 dB), psd max err "
-          f"{psd_err:.3g} of the max (tol 1e-4), psd_db {db_err[-100]:.3g} dB "
-          f"above -100 dB (tol 1e-3), {db_err[-120]:.3g} above -120 (tol 2e-3)")
+    # The first two windows (the eager one, after which the graphs are
+    # captured, and the first replayed one) against the port's CPU plain
+    # path fed the same windows (its chain's "auto" is the exact profile
+    # there, K1a's bf16x3 here: the waterfall is held to 100 dB,
+    # detections, ranges and speeds exactly).
+    cpu = StreamingProcessor(cfg, channels, window, "cpu")
+    for i, what in enumerate(("first window", "replayed window")):
+        want = cpu.process_window(raw[:, i * window:(i + 1) * window], cal)
+        g = got[i]
+        check(torch.equal(g.detected.cpu(), want.detected)
+              and torch.equal(g.col_count.cpu(), want.col_count),
+              f"{what}: detected, col_count exact")
+        w_snr = snr_db(g.waterfall.cpu(), want.waterfall)
+        check(w_snr >= 100.0, f"{what}: waterfall {w_snr:.2f} dB >= 100 dB")
+        for name, atol in (("range", 0.0), ("speed", 1e-7)):
+            a, b = getattr(g, name).cpu(), getattr(want, name)
+            check(torch.equal(a.isnan(), b.isnan())
+                  and torch.allclose(a, b, rtol=1e-6, atol=atol, equal_nan=True),
+                  f"{what}: {name} rtol 1e-6")
+        p, pw = g.psd.cpu(), want.psd
+        scale = pw.amax(dim=(-2, -1), keepdim=True)
+        psd_err = float(((p - pw).abs() / scale).max())
+        check(psd_err <= 1e-4, f"{what}: psd within 1e-4 of the max")
+        db, dbw = g.psd_db.cpu(), want.psd_db
+        check(torch.equal(db == DB_FLOOR, dbw == DB_FLOOR), f"{what}: floors")
+        db_err = {lvl: float((db - dbw).abs()[dbw > lvl].max())
+                  for lvl in (-100, -120)}
+        check(db_err[-100] <= 1e-3 and db_err[-120] <= 2e-3,
+              f"{what}: psd_db within 1e-3 dB above -100 dB, 2e-3 above -120")
+        for name in ("norm_power", "carry"):
+            check(torch.allclose(getattr(g, name).cpu(), getattr(want, name),
+                                 rtol=1e-5, atol=0), f"{what}: {name} rtol 1e-5")
+        print(f"[stream] {what} on cuda = the CPU plain path: waterfall "
+              f"{w_snr:.2f} dB SNR (tol 100 dB), psd max err "
+              f"{psd_err:.3g} of the max (tol 1e-4), psd_db {db_err[-100]:.3g} "
+              f"dB above -100 dB (tol 1e-3), {db_err[-120]:.3g} above -120 "
+              f"(tol 2e-3)")
 
     # Window-split invariance on the card: 4 × 256 against 1 × 1,024 frames.
     full = StreamingProcessor(cfg, 1, frames, dev).process_window(raw[:1], cal[:1])

@@ -10,10 +10,14 @@ is imported.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run can
 reset it and read it back to show that its path went through the kernels.
+A launch inside ``capture_launches`` (a CUDA graph's capture, which runs
+nothing) is counted into that capture's own count instead, which
+``add_launches`` adds to ``LAUNCHES`` at each replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -44,6 +48,7 @@ LAUNCHES = {"fast_time_profile_b3": 0, "fast_time_profile": 0,
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_capture = threading.local()  # .counts: the launches of a capture on this thread
 
 
 class KernelBuildError(RuntimeError):
@@ -53,6 +58,26 @@ class KernelBuildError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Count the launches this thread makes inside into the dict yielded,
+    not into ``LAUNCHES``: for a CUDA graph's capture, where they run
+    nothing."""
+    counts: dict[str, int] = {}
+    outer = getattr(_capture, "counts", None)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = outer
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count a replay of a graph whose capture counted ``counts``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def find_nvcc() -> str | None:
@@ -175,7 +200,12 @@ def check_operand(name: str, t, device, dtype) -> None:
 
 
 def check_launch(name: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error; else count the launch."""
+    """Raise if a launch returned a CUDA error; else count the launch (into
+    the capture's count inside ``capture_launches``)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    counts = getattr(_capture, "counts", None)
+    if counts is None:
+        LAUNCHES[name] += 1
+    else:
+        counts[name] = counts.get(name, 0) + 1

@@ -16,9 +16,19 @@ C channels:
     max (radar_processing.m:282-283) from collected windows.
 
 The state (carry [C, W−1], carry_len [C], max_power [C]) lives on the
-processor's device between windows. The left alignment of each channel's
-stream and the next carry are index gathers on the device, so a window
-whose inputs already lie on the device costs no host synchronization.
+processor's device between windows, in buffers updated in place. The left
+alignment of each channel's stream and the next carry are index gathers on
+the device, so a window whose inputs already lie on the device costs no
+host synchronization.
+
+On a CUDA device a window's work is about 90 small operations a channel
+and the STFT tail, far more host dispatch than kernel time. So the first
+window of each input shape runs eagerly and is then captured into two CUDA
+graphs (the per-channel chains with their packing; the STFT tail), and
+every later window of that shape copies its inputs into the graphs' static
+buffers and replays them: the same kernels in the same order on the same
+data. The results are copied out of the graphs' outputs, so a result stays
+the caller's after later windows. The CPU runs every window eagerly.
 
 With a ``mesh`` (parallel/mesh.py) the channels shard over its ``data``
 axis, as the JAX processor's do: C must divide by the axis size, each rank
@@ -33,9 +43,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from fmcw_radar_processing_tpu_torch.config import RadarConfig
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator, psd_db
+from fmcw_radar_processing_tpu_torch.ops import _lib
 from fmcw_radar_processing_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from fmcw_radar_processing_tpu_torch.pipeline.frame_chain import (
     make_frame_chain,
@@ -45,6 +57,7 @@ from fmcw_radar_processing_tpu_torch.utils.cplx import pair_abs, resolve_device
 from fmcw_radar_processing_tpu_torch.utils.observe import span
 
 DB_MODES = ("per_window", "running_max")
+GRAPH_SHAPES = 4  # input shapes a processor keeps captured graphs for
 
 
 class StreamingWindowResult(NamedTuple):
@@ -99,14 +112,18 @@ class StreamingProcessor:
         self._stft = StftOperator.create(
             window_length=self._wl, beta=a.stft_kaiser_beta, nfft=nfft,
             fs=1.0 / cfg.derived.prt, hop=1, precision=a.matmul_precision)
-        self.reset()
-
-    def reset(self) -> None:
         c, dev = self.local_channels, self.device
         self._carry = torch.zeros((c, self._wl - 1), dtype=torch.float32,
                                   device=dev)
         self._carry_len = torch.zeros((c,), dtype=torch.int32, device=dev)
         self._max_power = torch.zeros((c,), dtype=torch.float32, device=dev)
+        self._graphs: dict[tuple, _WindowGraphs] = {}
+
+    def reset(self) -> None:
+        """Start every channel's stream anew. The state is zeroed in place:
+        the captured graphs read and write these buffers."""
+        for t in (self._carry, self._carry_len, self._max_power):
+            t.zero_()
 
     def process_window(self, raw, calib) -> StreamingWindowResult:
         """Process one window.
@@ -121,29 +138,60 @@ class StreamingProcessor:
         with span("stream.upload"):
             if raw.shape[0] == self.channels and nc != self.channels:
                 raw, calib = raw[c0:c0 + nc], calib[c0:c0 + nc]
-            raw = torch.as_tensor(raw, dtype=torch.float32, device=dev)
-            calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
             if raw.ndim == 5:
                 raw = raw.reshape(*raw.shape[:3], -1)
             if raw.shape[0] != nc or calib.shape[0] != nc:
                 raise ValueError(f"expected {nc} channels, got raw "
                                  f"{tuple(raw.shape)}, calib {tuple(calib.shape)}")
-            raw = raw.contiguous()
+            graphs = self._graphs_for(tuple(raw.shape), tuple(calib.shape))
+            if graphs is None:
+                raw = torch.as_tensor(raw, dtype=torch.float32, device=dev)
+                calib = torch.as_tensor(calib, dtype=torch.float32, device=dev)
+                raw = raw.contiguous()
+            else:
+                graphs.raw.copy_(torch.as_tensor(raw))
+                graphs.calib.copy_(torch.as_tensor(calib))
+                raw, calib = graphs.raw, graphs.calib
+        if graphs is not None and graphs.captured:
+            return graphs.replay()
         outs, mags, counts = [], [], []
         for c in range(nc):
             with span("stream.chain"):
-                out = self._chain(raw[c], calib[c])
-                sig, count = pack_slow_time(out.strongest_chirps, out.detected,
-                                            self.cfg.pn)
+                out, mag, count = self._channel(raw[c], calib[c])
                 outs.append(out)
-                mags.append(pair_abs(sig))  # [F·PN], valid in [0, count)
+                mags.append(mag)
                 counts.append(count)
         with span("stream.stft"):
-            return self._stft_tail(outs, mags, counts)
+            res = self._stft_tail(outs, mags, counts)
+        if graphs is not None:
+            graphs.capture(self)
+        return res
+
+    def _graphs_for(self, raw_shape, calib_shape) -> _WindowGraphs | None:
+        """The graphs of windows of this shape on a CUDA device, made at the
+        shape's first window while fewer than GRAPH_SHAPES are kept; None
+        (the eager path) otherwise."""
+        if self.device.type != "cuda":
+            return None
+        key = (raw_shape, calib_shape)
+        graphs = self._graphs.get(key)
+        if graphs is None and len(self._graphs) < GRAPH_SHAPES:
+            graphs = self._graphs[key] = _WindowGraphs(raw_shape, calib_shape,
+                                                       self.device)
+        return graphs
+
+    def _channel(self, raw, calib):
+        """One channel's chain, its packed slow-time stream's magnitude
+        [F·PN] (valid in [0, count)) and count."""
+        out = self._chain(raw, calib)
+        sig, count = pack_slow_time(out.strongest_chirps, out.detected,
+                                    self.cfg.pn)
+        return out, pair_abs(sig), count
 
     def _stft_tail(self, outs, mags, counts) -> StreamingWindowResult:
         """The window's batched STFT over the channels' packed streams, its
-        dB, the carry and max for the next window, and the results."""
+        dB, the carry and max for the next window (into the state, in
+        place), and the results."""
         dev, wl = self.device, self._wl
         mag = torch.stack(mags)  # [C, F·PN]
         count = torch.stack(counts)  # [C]
@@ -172,9 +220,10 @@ class StreamingProcessor:
         # (W−1 zeros in front keep the zero pad of a short stream).
         y = torch.cat([torch.zeros_like(self._carry), aligned], dim=1)
         idx = total[:, None].to(torch.int64) + torch.arange(wl - 1, device=dev)
-        self._carry = torch.gather(y, 1, idx)
-        self._carry_len = torch.clamp_max(total, wl - 1)
-        self._max_power = new_max
+        carry = torch.gather(y, 1, idx)
+        self._carry.copy_(carry)
+        self._carry_len.copy_(torch.clamp_max(total, wl - 1))
+        self._max_power.copy_(new_max)
         return StreamingWindowResult(
             waterfall=torch.stack([o.waterfall for o in outs]),
             range=torch.stack([o.range for o in outs]),
@@ -182,8 +231,86 @@ class StreamingProcessor:
             strength=torch.stack([o.strength for o in outs]),
             detected=torch.stack([o.detected for o in outs]),
             psd=res.power, psd_db=db, norm_power=norm, col_count=n_cols,
-            carry=self._carry,
+            carry=carry,
         )
+
+
+class _WindowGraphs:
+    """One window shape's CUDA graphs: static input buffers, the chain graph
+    (every channel's chain, packing and magnitude, whose static outputs the
+    tail reads), the tail graph (the processor's ``_stft_tail``), the
+    tail's static results, every tensor the graphs read that they did not
+    make, and the kernel launches (ops/_lib.py::LAUNCHES) they hold."""
+
+    def __init__(self, raw_shape, calib_shape, device: torch.device):
+        self.device = device
+        self.raw = torch.empty(raw_shape, dtype=torch.float32, device=device)
+        self.calib = torch.empty(calib_shape, dtype=torch.float32,
+                                 device=device)
+        self.captured = False
+
+    def capture(self, proc: StreamingProcessor) -> None:
+        """Capture the window's work from ``proc`` as it is now (its
+        ``_chain`` included) on its device. Capture runs nothing, so the
+        state does not advance; a capture error is raised."""
+        self.chain, self.tail = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        operands = _Operands()
+        with torch.cuda.device(self.device), _lib.capture_launches() as n:
+            stream = torch.cuda.Stream(self.device)
+            with torch.cuda.graph(self.chain, stream=stream), operands:
+                self.chains = [proc._channel(self.raw[c], self.calib[c])
+                               for c in range(self.raw.shape[0])]
+            with torch.cuda.graph(self.tail, stream=stream), operands:
+                self.result = proc._stft_tail(*zip(*self.chains))
+        self.operands, self.launches = operands.kept, n
+        self.captured = True
+
+    def replay(self) -> StreamingWindowResult:
+        """One window from the static inputs: both graphs replayed, the
+        results copied out of the graphs' outputs."""
+        with span("stream.chain"), span("stream.graph_replay"):
+            self.chain.replay()
+        with span("stream.stft"):
+            self.tail.replay()
+            res = StreamingWindowResult(*(t.clone() for t in self.result))
+        _lib.add_launches(self.launches)
+        return res
+
+
+class _Operands(TorchFunctionMode):
+    """While a graph is captured: a reference to every tensor the captured
+    work reads that it did not make. A graph holds raw device addresses,
+    and a constant that its cache drops (dsp/detection.py::_gate_on is an
+    LRU cache) would go back to the allocator while the replays read it.
+    A tensor is the capture's own if an operation under it returned its
+    storage; the constants' storage stays allocated all through."""
+
+    def __init__(self):
+        super().__init__()
+        self.made: set[int] = set()
+        self.kept: dict[int, torch.Tensor] = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in _tensors((args, kwargs)):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in self.made:
+                self.kept.setdefault(ptr, t)
+        out = func(*args, **kwargs)
+        self.made.update(t.untyped_storage().data_ptr() for t in _tensors(out))
+        return out
+
+
+def _tensors(x):
+    """The tensors in ``x``, through tuples, lists and dict values."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
 
 
 def normalize_two_pass(

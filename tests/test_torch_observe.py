@@ -309,6 +309,46 @@ def test_span_metric_reads_the_collector(metric, monkeypatch):
     assert read(ctx) is None
 
 
+def test_graph_replay_metric_reads_the_span_count(monkeypatch):
+    """100 × the count of stream.graph_replay / items from a filled
+    collector; None from one without the span, and from a program without
+    the collector."""
+    read = _reader("stream.graph_replay_pct")
+    ctx = {"items": 4, "spans": {}}
+    assert read(ctx) is None
+    PROFILED.add("stream.chain", 0.5)
+    assert read(ctx) is None
+    for _ in range(3):
+        PROFILED.add("stream.graph_replay", 0.25)
+    assert read(ctx) == pytest.approx(75.0, rel=1e-12)
+    monkeypatch.delattr(observe, "PROFILED")
+    assert read(ctx) is None
+
+
+def test_graph_replay_metric_is_declared():
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    declared = {m["name"]: m for m in spec["per_layer"]}
+    assert declared["stream.graph_replay_pct"] == {
+        "name": "stream.graph_replay_pct", "unit": "%", "better": "higher",
+        "source": "program_span", "layer": "streaming",
+        "moves": "stream_window_p95_ms", "workloads": ["stream-8ch.windows"]}
+
+
+@pytest.mark.parametrize("db_mode", ["per_window", "running_max"])
+def test_cpu_windows_open_no_graph_replay(tmp_path, db_mode):
+    """On the CPU every window runs eagerly: under the profiler no window,
+    a window of a new length included, opens stream.graph_replay."""
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    windows, calib = _windows(cfg, 2, 3, 8, seed=9)
+    proc = StreamingProcessor(cfg, 2, 8, device="cpu", nfft=64, db_mode=db_mode)
+    with _Profiled(tmp_path / "t.json") as p:
+        for w in windows + [w[:, :4] for w in windows]:
+            proc.process_window(w, calib)
+    assert "stream.graph_replay" not in p.annotations
+    assert "stream.graph_replay" not in PROFILED.records
+    assert PROFILED.records["stream.chain"].count == 2 * 6 and proc._graphs == {}
+
+
 def test_every_span_metric_is_declared():
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     declared = {m["name"]: m for m in spec["per_layer"]}
@@ -347,3 +387,4 @@ def test_window_on_card_makes_no_host_sync(monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert res.psd_db.shape[0] == 8 and PROFILED.records == {}
+    assert [g.captured for g in proc._graphs.values()] == [True]  # replayed

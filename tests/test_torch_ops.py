@@ -548,6 +548,27 @@ def _launch_deltas(before):
     return {k: _lib.LAUNCHES[k] - before[k] for k in before}
 
 
+def test_captured_launches_count_at_replay():
+    """A launch inside capture_launches (a CUDA graph's capture) is counted
+    into the capture's dict, not into LAUNCHES; add_launches counts it at
+    each replay; an error is raised all the same; the count outside is
+    back to LAUNCHES when the capture ends."""
+    before = dict(_lib.LAUNCHES)
+    with _lib.capture_launches() as counts:
+        _lib.check_launch("psd_tmax", 0)
+        _lib.check_launch("psd_tmax", 0)
+        _lib.check_launch("db_rescale", 0)
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            _lib.check_launch("db_rescale", 700)
+    assert counts == {"psd_tmax": 2, "db_rescale": 1}
+    assert _lib.LAUNCHES == before
+    _lib.add_launches(counts)
+    _lib.add_launches(counts)
+    _lib.check_launch("psd_tmax", 0)
+    assert _launch_deltas(before) == {
+        k: {"psd_tmax": 5, "db_rescale": 2}.get(k, 0) for k in before}
+
+
 @pytest.mark.parametrize("f", [12, 9])
 def test_fast_time_dispatch_on_device_tensors(monkeypatch, f):
     """K6 on a device tensor: one fast_time launch (rows, K), rf [F, PN, K,

@@ -7,7 +7,13 @@ modes; it is also held to its own window-split invariance, as the JAX
 tests hold the JAX processor. Tolerances: the frame chain's bounds
 (ROADMAP.md, Queue 1 item 3) for the per-frame outputs, the STFT bounds of
 tests/test_stft_pallas.py for the spectrogram.
+
+The ``cuda`` tests hold the card's CUDA-graph path to the card's eager
+path: bit-equal results, results that later windows leave alone, and the
+same kernel launches a window.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,12 +26,23 @@ from fmcw_radar_processing_tpu.pipeline.streaming import (
 from fmcw_radar_processing_tpu.pipeline.streaming import (
     normalize_two_pass as jax_normalize_two_pass,
 )
+from torch.profiler import ProfilerActivity, profile
+
+from fmcw_radar_processing_tpu_torch.config import (
+    AlgorithmConfig,
+    RadarConfig,
+    default_device_config,
+)
+from fmcw_radar_processing_tpu_torch.dsp.detection import _gate_on
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator, psd_db
+from fmcw_radar_processing_tpu_torch.ops import _lib
 from fmcw_radar_processing_tpu_torch.pipeline.streaming import (
     StreamingProcessor,
+    _Operands,
     normalize_two_pass,
 )
-from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
+from fmcw_radar_processing_tpu_torch.utils.cplx import pin_f32_matmul, to_pair
+from fmcw_radar_processing_tpu_torch.utils.observe import PROFILED
 
 from .conftest import make_recording
 
@@ -205,3 +222,154 @@ def test_normalize_two_pass_bit_equal_to_jax():
     for g, w in zip(got, want):
         assert g.dtype == np.float32
         np.testing.assert_array_equal(g, w)
+
+
+def test_capture_keeps_the_tensors_it_did_not_make():
+    """_Operands keeps every tensor read under it that no operation under it
+    returned (inputs, constants, views of them, through lists), and none
+    that it made, across two entries."""
+    const, x = torch.arange(6.0), torch.ones(6)
+    keep = _Operands()
+    with keep:
+        a = torch.empty(6)
+        a.copy_(x)
+        b = a * const
+        c = torch.stack([b[1:4] + 1, const[:3]])
+        d = torch.zeros(2, 3) + c
+    with keep:
+        torch.cat([d, x.view(2, 3)[:, :1]], dim=1)
+    kept = {id(t) for t in keep.kept.values()}
+    assert kept == {id(x), id(const)}
+
+
+# --- on the card: windows replayed from CUDA graphs --------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pin_f32_matmul()
+    return torch.device("cuda")
+
+
+def _card_stream(channels, lengths, seed):
+    """The production config and consecutive windows of ``lengths`` frames
+    from ``channels`` channels ([C, F, PN, NTS, 2] each, every fifth frame
+    muted on channel 0, every third on the others), with the channels'
+    [C, NTS, 2] calibration."""
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    rng = np.random.default_rng(seed)
+    n = sum(lengths)
+    chans = [_channel(cfg, rng, n, (40, 90) if c % 2 else (60,),
+                      range(c % 3, n, 5 if c == 0 else 3), 1.0 - 0.25j * c)
+             for c in range(channels)]
+    raw = np.stack([r for r, _ in chans]).astype(np.float32)
+    cuts = np.cumsum((0,) + tuple(lengths))
+    windows = [np.ascontiguousarray(raw[:, a:b]) for a, b in zip(cuts, cuts[1:])]
+    return cfg, windows, np.stack([c for _, c in chans]).astype(np.float32)
+
+
+def _eager(proc):
+    """``proc`` with every window on the eager path."""
+    proc._graphs_for = lambda raw_shape, calib_shape: None
+    return proc
+
+
+def _assert_results_equal(got, want, where):
+    for field in want._fields:
+        torch.testing.assert_close(getattr(got, field), getattr(want, field),
+                                   rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{where}, {field}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("db_mode", ["per_window", "running_max"])
+def test_graph_windows_bit_equal_to_eager(card, db_mode):
+    """Replayed windows equal an eager processor's fed the same windows, bit
+    for bit, across a reset() and a second window length (a new shape,
+    captured at its own first window)."""
+    lengths = (32, 32, 32, 32, 16, 32, 16, 16)
+    cfg, windows, cal = _card_stream(3, lengths, seed=11)
+    graph, eager = (StreamingProcessor(cfg, 3, 32, device=card, nfft=256,
+                                       db_mode=db_mode) for _ in range(2))
+    _eager(eager)
+    for i, w in enumerate(windows):
+        if i == 3:
+            graph.reset()
+            eager.reset()
+        _assert_results_equal(graph.process_window(w, cal),
+                              eager.process_window(w, cal), f"window {i}")
+    shapes = {key[0][1] for key, g in graph._graphs.items() if g.captured}
+    assert shapes == {32, 16} and eager._graphs == {}
+
+
+@pytest.mark.cuda
+def test_graph_windows_outlive_evicted_constants(card):
+    """A replay reads no memory that a cache has given back: with the gate
+    mask pushed out of dsp/detection.py::_gate_on by more other configs
+    than it keeps, and every free block of the allocator's small pool
+    written with zeros (a zero gate detects nothing), replayed windows
+    still equal an eager processor's bit for bit."""
+    cfg, windows, cal = _card_stream(2, (32,) * 5, seed=7)
+    graph, eager = (StreamingProcessor(cfg, 2, 32, device=card, nfft=256)
+                    for _ in range(2))
+    _eager(eager)
+    others = [RadarConfig.create(default_device_config(),
+                                 AlgorithmConfig.production(min_distance=1.0 + j))
+              for j in range(_gate_on.cache_info().maxsize + 1)]
+    for i, w in enumerate(windows):
+        junk = []
+        if i >= 2:
+            for other in others:
+                _gate_on(other, card)
+            stats = torch.cuda.memory_stats(card)
+            free = (stats["reserved_bytes.small_pool.current"]
+                    - stats["allocated_bytes.small_pool.current"])
+            junk = [torch.zeros(512, dtype=torch.uint8, device=card)
+                    for _ in range(free // 512 + 1)]
+        got = graph.process_window(w, cal)
+        want = eager.process_window(w, cal)
+        assert bool(want.detected.any())
+        _assert_results_equal(got, want, f"window {i}")
+        del junk
+    assert all(g.captured for g in graph._graphs.values())
+
+
+@pytest.mark.cuda
+def test_graph_results_stay_the_callers(card):
+    """A returned result, from the capturing window or a replayed one, is
+    unchanged by the windows after it."""
+    cfg, windows, cal = _card_stream(2, (32,) * 4, seed=5)
+    proc = StreamingProcessor(cfg, 2, 32, device=card, nfft=256,
+                              db_mode="running_max")
+    results = [proc.process_window(windows[0], cal)]
+    kept = [[t.clone() for t in results[0]]]
+    for w in windows[1:]:
+        results.append(proc.process_window(w, cal))
+        kept.append([t.clone() for t in results[-1]])
+    for i, (res, want) in enumerate(zip(results, kept)):
+        _assert_results_equal(res, type(res)(*want), f"window {i}")
+
+
+@pytest.mark.cuda
+def test_graph_windows_launch_and_span_once(card, tmp_path):
+    """Each window counts the same kernel launches on the eager and the
+    replayed path (the capture counts none); under the profiler a replayed
+    window opens stream.chain and stream.graph_replay once."""
+    cfg, windows, cal = _card_stream(2, (32,) * 4, seed=3)
+    counts = []
+    for proc in (_eager(StreamingProcessor(cfg, 2, 32, device=card, nfft=256)),
+                 StreamingProcessor(cfg, 2, 32, device=card, nfft=256)):
+        per_window = []
+        for w in windows[:3]:
+            _lib.reset_launches()
+            proc.process_window(w, cal)
+            per_window.append({k: n for k, n in _lib.LAUNCHES.items() if n})
+        counts.append(per_window)
+    assert counts[0] == counts[1] == [{"fast_time_profile_b3": 2}] * 3
+    with profile(activities=[ProfilerActivity.CPU]):
+        proc.process_window(windows[3], cal)
+    assert {k: r.count for k, r in PROFILED.records.items()} == {
+        "stream.upload": 1, "stream.chain": 1, "stream.graph_replay": 1,
+        "stream.stft": 1}
