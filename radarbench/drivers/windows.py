@@ -12,7 +12,9 @@ the traced slice), "trace_items" (windows in the traced slice),
 
 A window is timed from its host NumPy inputs to its results on the host:
 psd_db, detected, range, speed, waterfall (and strength and col_count,
-which the comparison reads).
+which the comparison reads). As a fleet's client would, the driver reads
+them into host buffers of its own, pinned on a card, made at the shape's
+first window in set-up and reused by every window after it.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class Driver:
         self.kept = None
         self.proc = None
         self.n = 0  # windows fed since the stream started
+        self.host, self.views = {}, {}  # the client's result buffers, and their arrays
 
     def setup(self) -> None:
         import torch
@@ -89,7 +92,23 @@ class Driver:
         """Window ``i`` of the stream: sent from the host, its results read
         back to the host."""
         res = self.proc.process_window(self.windows[i % len(self.windows)], self.calib)
-        return {k: getattr(res, k).cpu().numpy() for k in READ_BACK}
+        return self._read_back(res)
+
+    def _read_back(self, res) -> dict:
+        """The results into the client's own host buffers, made at the first
+        window of a shape (pinned when on a card) and reused by every later
+        one: the copies are waited for; the arrays are views of the buffers."""
+        import torch
+
+        for k in READ_BACK:
+            t = getattr(res, k)
+            b = self.host.get(k)
+            if b is None or b.shape != t.shape or b.dtype != t.dtype:
+                b = self.host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+                self.views[k] = b.numpy()
+            b.copy_(t, non_blocking=True)
+        program.synchronize(self.device)
+        return self.views
 
     def _loop(self, until) -> list[float]:
         """Windows back to back until ``until(count, elapsed)``; returns each
@@ -103,7 +122,7 @@ class Driver:
             out = self._window(self.n)
             tb = time.perf_counter()
             lat.append(1e3 * (tb - ta))
-            res.offer(lambda: out)
+            res.offer(lambda: {k: v.copy() for k, v in out.items()})
             self.n += 1
             if until(len(lat), tb - t0):
                 return lat
@@ -129,8 +148,7 @@ class Driver:
             res = self.proc.process_window(self.windows[self.n % len(self.windows)],
                                            self.calib)
             ms.append(1e3 * (time.perf_counter() - ta))
-            for k in READ_BACK:
-                getattr(res, k).cpu()
+            self._read_back(res)
             self.n += 1
         return {"enqueue_ms": ms}
 

@@ -9,12 +9,22 @@ count looks at which kernels run, so a fused, swapped or dropped kernel
 leaves it as it is. The least time is the larger of bytes over the peak
 bandwidth and operations over the peak rate; ``bound`` says which.
 
+The STFT's nfft is the configuration's ``stft_nfft``, or where that is
+null (the fidelity profile, the bare ``AlgorithmConfig``) the program's
+rule: the next power of two of the packed signal's valid samples, which
+at hop 1 are the columns plus the window less one.
+
+``recording_work`` and ``activity_work`` give beside their totals the
+share of the spectrogram export alone, under "export".
+
 Peaks: NVIDIA's data sheet for the H100 SXM (dense, at the 700 W limit).
 """
 
 from __future__ import annotations
 
 import math
+
+from radarbench.reference.compare import next_pow2
 
 PEAKS = {"bytes_per_s": 3.35e12, "float32_flop_per_s": 67e12}
 DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
@@ -23,6 +33,20 @@ DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 def fft_flops(n: int, count: int, real: bool = False) -> float:
     f = 5.0 * n * math.log2(n) * count
     return f / 2 if real else f
+
+
+def stft_nfft(cfg: dict, columns: int) -> int:
+    """The nfft of an export of ``columns`` hop-1 columns: ``stft_nfft``
+    where the configuration sets it, else next_pow2(columns + W − 1), as
+    the program picks it from its valid sample count."""
+    alg = cfg["algorithm"]
+    if alg["stft_nfft"]:
+        return alg["stft_nfft"]
+    if (alg["stft_hop"] or 1) != 1:
+        raise ValueError(f"{cfg['name']}: a null stft_nfft at "
+                         f"stft_hop {alg['stft_hop']}; its columns do not fix the "
+                         "sample count the nfft follows")
+    return next_pow2(columns + alg["stft_window_length"] - 1)
 
 
 def least_seconds(nbytes: float, flops: float) -> tuple[float, str]:
@@ -61,11 +85,12 @@ def recording_work(cfg: dict, frames: int, columns: int, ranks: int = 1) -> dict
     k = alg["range_fft_size"]
     raw, ops = _chain(cfg, frames)
     sharded = ranks > 1  # the sharded export keeps float32 maps
-    out, eops = _export(cfg, columns, alg["stft_nfft"],
+    out, eops = _export(cfg, columns, stft_nfft(cfg, columns),
                         "float32" if sharded else alg["stft_db_store"],
                         "float32" if sharded else alg["intensity_dtype"])
     nbytes = raw + frames * (k * 4 + 3 * 4 + 1) + out
-    return {"bytes": nbytes / ranks, "flops": (ops + eops) / ranks}
+    return {"bytes": nbytes / ranks, "flops": (ops + eops) / ranks,
+            "export": {"bytes": out / ranks, "flops": eops / ranks}}
 
 
 def activity_work(cfg: dict, frames: int, batch_columns: list[int]) -> dict:
@@ -73,12 +98,13 @@ def activity_work(cfg: dict, frames: int, batch_columns: list[int]) -> dict:
     spectrograms' intensity out."""
     alg = cfg["algorithm"]
     raw, ops = _chain(cfg, frames)
-    nbytes = raw
+    xbytes = xops = 0
     for cols in batch_columns:
-        out, eops = _export(cfg, cols, alg["stft_nfft"], None, alg["intensity_dtype"])
-        nbytes += out
-        ops += eops
-    return {"bytes": nbytes, "flops": ops}
+        out, eops = _export(cfg, cols, stft_nfft(cfg, cols), None, alg["intensity_dtype"])
+        xbytes += out
+        xops += eops
+    return {"bytes": raw + xbytes, "flops": ops + xops,
+            "export": {"bytes": xbytes, "flops": xops}}
 
 
 def stream_window_work(cfg: dict) -> dict:

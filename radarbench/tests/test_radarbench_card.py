@@ -8,9 +8,9 @@ from __future__ import annotations
 import pytest
 
 from radarbench import harness
-from radarbench.tests.conftest import make_root
+from radarbench.tests.conftest import make_root, one_card_cells
 
-ONE_CARD = ("production-65k.recording", "production-65k.activity", "stream-8ch.windows")
+ONE_CARD = one_card_cells()
 
 
 @pytest.mark.cuda

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 
 from radarbench import harness
+from radarbench.tests.conftest import one_card_cells
 
-ONE_CARD = ("production-65k.recording", "production-65k.activity", "stream-8ch.windows")
+ONE_CARD = one_card_cells()
 SEED = 2**31 + 12345
 
 

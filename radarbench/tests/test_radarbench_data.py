@@ -13,8 +13,8 @@ from pathlib import Path
 
 import pytest
 
-from radarbench import harness
-from radarbench.tests.conftest import REPO, make_root
+from radarbench import harness, roofline
+from radarbench.tests.conftest import REPO, add_fidelity_rehearsal, make_root
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -96,17 +96,38 @@ def test_per_layer_workloads_name_cells():
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
 
 
-def test_configs_state_the_programs_production_profile():
+def _states_a_profile_of_the_program(spec: dict, root: Path) -> None:
+    """Each configuration's algorithm is, field for field, one of the
+    port's two named profiles: AlgorithmConfig.production() or the bare
+    AlgorithmConfig() (the HTTP handler's "production" and "fidelity")."""
     from fmcw_radar_processing_tpu_torch.config.radar import (
         AlgorithmConfig,
         default_device_config,
     )
 
-    for c in BENCH["configs"]:
-        cfg = json.loads((REPO / c["file"]).read_text())
-        assert cfg["algorithm"] == dataclasses.asdict(AlgorithmConfig.production())
+    profiles = [dataclasses.asdict(AlgorithmConfig.production()),
+                dataclasses.asdict(AlgorithmConfig())]
+    for c in spec["configs"]:
+        cfg = json.loads((root / c["file"]).read_text())
+        assert cfg["algorithm"] in profiles, c["name"]
         assert cfg["device"] == dataclasses.asdict(default_device_config())
         assert cfg["reduced"] == c["reduced"]
+
+
+def test_configs_state_a_profile_of_the_program():
+    _states_a_profile_of_the_program(BENCH, REPO)
+
+
+@pytest.mark.parametrize("field,value", [("stft_nfft", 512), ("intensity_dtype", "int8"),
+                                         ("batch_size", 50)])
+def test_a_config_of_neither_profile_is_refused(tmp_path, field, value):
+    root = make_root(tmp_path / "checkout", tiny=False)
+    path = root / "radarbench" / "configs" / "production-65k.json"
+    cfg = json.loads(path.read_text())
+    cfg["algorithm"][field] = value
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(AssertionError):
+        _states_a_profile_of_the_program(BENCH, root)
 
 
 DUMMY_DRIVER = '''
@@ -194,6 +215,63 @@ def test_a_dummy_cell_added_as_new_files_runs(tmp_path):
     r = harness.run_cell(root, "dummy.count", 5, 0.05, True, "cpu")
     assert r["metrics"] == {"dummy.sum_ms": {"value": 1000.0, "unit": "ms"}}
     assert list(r)[-1] == "checks"
+
+
+ERRS = ("profile_err", "db_err", "intensity_err")
+
+
+def test_a_fidelity_cell_added_as_new_files_runs(tmp_path, monkeypatch):
+    """A cell of the service's default profile (a null stft_nfft) over the
+    real recording mix and driver is taken as new files and BENCHMARK.json
+    entries. At 512 frames its nfft is 8,192: past the untiled export's
+    512 bins, the tiled export's plain versions. The program reads below
+    its control on each number; limits between the two pass the one and
+    fail the other; a traced run's roofline reader gets finite work."""
+    import torch
+
+    torch.set_num_threads(2)
+    root = make_root(tmp_path / "checkout")
+    before = _digest(root)
+    cell = add_fidelity_rehearsal(root, 512, {"detect_faults": 0, "payload_faults": 0,
+                                              **dict.fromkeys(ERRS, 0.0)})
+    after = _digest(root)
+    assert {k for k in before if before[k] != after.get(k)} == {"BENCHMARK.json"}
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    _states_a_profile_of_the_program(spec, root)
+    _resolves_by_name(harness.Bench(root), cell)
+
+    seed = 2**31 + 4242
+    runs = [harness.run_cell(root, cell, seed, 0.1, False, "cpu", variant=v)
+            for v in ("program", "control")]
+    prog, ctl = ({k: c["value"] for k, c in r["checks"].items()} for r in runs)
+    assert prog["detect_faults"] == prog["payload_faults"] == 0, prog
+    assert all(prog[k] < ctl[k] for k in ERRS), (prog, ctl)
+    limits = {"detect_faults": 0, "payload_faults": 0,
+              **{k: math.sqrt(prog[k] * ctl[k]) for k in ERRS}}
+    (root / "radarbench" / "limits" / f"{cell}.json").write_text(json.dumps({"limits": limits}))
+    assert harness.judge(prog, limits)[0] and not harness.judge(ctl, limits)[0]
+
+    seen = {}
+    reader = harness.Bench.reader
+
+    def spying(self, metric):
+        read = reader(self, metric)
+
+        def spy(ctx):
+            seen[metric] = ctx
+            return read(ctx)
+
+        return spy
+
+    monkeypatch.setattr(harness.Bench, "reader", spying)
+    r = harness.run_cell(root, cell, seed + 1, 0.1, True, "cpu")
+    assert r["correct"], r["checks"]
+    work = seen["kernels_roofline_pct.recording"]["work"]
+    assert all(math.isfinite(x) and x > 0 for x in (work["bytes"], work["flops"],
+                                                    work["export"]["bytes"],
+                                                    work["export"]["flops"]))
+    cols, rest = divmod(work["export"]["bytes"], (1024 + 4097) * 4)  # float32 maps, nfft 8,192
+    assert rest == 0 and roofline.next_pow2(int(cols) + 19) == 8192
 
 
 def test_judge_needs_every_limit_met():

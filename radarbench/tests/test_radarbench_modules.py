@@ -7,7 +7,7 @@ import subprocess
 import sys
 
 from radarbench import harness
-from radarbench.tests.conftest import REPO
+from radarbench.tests.conftest import REPO, one_card_cells
 
 
 def test_forbidden_by_whole_top_level_name():
@@ -28,14 +28,16 @@ sys.path.insert(0, {repo!r})
 import torch
 torch.set_num_threads(2)
 from radarbench import harness
-for cell in ("production-65k.recording", "stream-8ch.windows", "production-65k.activity"):
-    harness.run_cell({root!r}, cell, 7, 0.1, cell.startswith("stream"), "cpu")
+for cell in {cells!r}:
+    for traced in (False, True):
+        harness.run_cell({root!r}, cell, 7, 0.1, traced, "cpu")
 print(json.dumps(harness.forbidden_modules(sys.modules)))
 """
 
 
 def test_a_whole_run_loads_no_jax(tiny_root):
-    out = subprocess.run([sys.executable, "-c", RUN.format(repo=str(REPO), root=str(tiny_root))],
+    out = subprocess.run([sys.executable, "-c", RUN.format(repo=str(REPO), root=str(tiny_root),
+                                                     cells=one_card_cells())],
                          capture_output=True, text=True, timeout=300, cwd=tiny_root)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
