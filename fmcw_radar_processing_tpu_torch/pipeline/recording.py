@@ -41,6 +41,7 @@ from fmcw_radar_processing_tpu_torch.pipeline.payloads import (
     range_speed_payload,
     spectrogram_payload,
 )
+from fmcw_radar_processing_tpu_torch.utils import observe
 from fmcw_radar_processing_tpu_torch.utils.cplx import (
     pair_abs,
     pin_f32_matmul,
@@ -155,8 +156,9 @@ class RadarPipeline:
         trimmed to the valid columns, or None if shorter than one window.
 
         timer stages: "stft" (the device export, synced) and "host_decode"
-        (device-to-host copies, span "recording.decode_copy", then widening
-        to float32, span "recording.decode_widen")."""
+        (device-to-host copies, span "recording.decode_copy", with their
+        bytes counted as "recording.decode_copy_bytes", then widening to
+        float32, span "recording.decode_widen")."""
         tm = timer if timer is not None else NullTimer()
         a = self.cfg.algorithm
         wl = a.stft_window_length
@@ -205,6 +207,8 @@ class RadarPipeline:
             with span("recording.decode_copy"):
                 intensity = intensity[:, :n_valid].cpu()
                 db = db[:, :n_valid].cpu()
+                observe.count("recording.decode_copy_bytes",
+                              intensity.nbytes + db.nbytes)
             with span("recording.decode_widen"):
                 if a.intensity_dtype == "int8":
                     intensity_np = decode_db_int8(intensity)

@@ -12,7 +12,9 @@ the region is a ``record_function`` annotation (a ``user_annotation``
 event on the clock of the kernels and copies in the Chrome trace) and its
 host seconds and count go to :data:`PROFILED`. A span never synchronizes
 the device: its seconds are host time, device work included only where
-the code inside already waits for it.
+the code inside already waits for it. :func:`count` adds a number (bytes,
+items) to :data:`PROFILED` under the same rule, and does nothing off the
+profiler.
 """
 
 from __future__ import annotations
@@ -152,28 +154,42 @@ class NullTimer:
 
 
 PROFILED = StageTimer()
-"""Host seconds and count of every span, by name, over the newest stretch
-of spans opened under the profiler. It is cleared when a span opens under
-the profiler after a span opened without it, so an untraced call between
-two profiled stretches leaves only the second."""
+"""Host seconds and count of every span, and the sum of every counter (as
+its ``items``), by name, over the newest stretch of spans and counts made
+under the profiler. It is cleared when a span opens, or a count is made,
+under the profiler after one without it, so an untraced call between two
+profiled stretches leaves only the second."""
 
 _NO_SPAN = contextlib.nullcontext()
-_unprofiled_span_since = True  # since the last span opened under the profiler
+_unprofiled_span_since = True  # since the last span or count under the profiler
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` profile records (one flag read);
+    clears PROFILED at the first call under it after one without it."""
+    global _unprofiled_span_since
+    if not _autograd_profiler._is_profiler_enabled:
+        _unprofiled_span_since = True
+        return False
+    if _unprofiled_span_since:
+        _unprofiled_span_since = False
+        with PROFILED._lock:
+            PROFILED.records.clear()
+    return True
 
 
 def span(name: str) -> ContextManager[None]:
     """Mark the enclosed region of program code as ``name``: a shared no-op
     after one flag read while no profiler records, else a
     ``record_function`` annotation whose host seconds go to PROFILED."""
-    global _unprofiled_span_since
-    if not _autograd_profiler._is_profiler_enabled:
-        _unprofiled_span_since = True
-        return _NO_SPAN
-    if _unprofiled_span_since:
-        _unprofiled_span_since = False
-        with PROFILED._lock:
-            PROFILED.records.clear()
-    return _profiled_span(name)
+    return _profiled_span(name) if _profiling() else _NO_SPAN
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to PROFILED's record ``name`` (its ``items``, no seconds)
+    while a profiler records; else nothing, after one flag read."""
+    if _profiling():
+        PROFILED.add(name, 0.0, n)
 
 
 @contextlib.contextmanager

@@ -33,7 +33,7 @@ from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
 from fmcw_radar_processing_tpu_torch.utils import observe
 from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
-from fmcw_radar_processing_tpu_torch.utils.observe import PROFILED, StageTimer, span
+from fmcw_radar_processing_tpu_torch.utils.observe import PROFILED, StageTimer, count, span
 
 REPO = Path(__file__).resolve().parents[1]
 RECORDING_SPANS = ("recording.upload", "recording.chain_wait",
@@ -48,6 +48,17 @@ METRICS = {  # reader (radarbench/metrics/<name>.py) -> the span it reads
     "stream.chain_dispatch_ms": "stream.chain",
     "stream.stft_dispatch_ms": "stream.stft",
 }
+COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading)
+    **{m: ([(name, 0.25, None), (name, 0.75, None)], 1e3 * 1.0 / 4)
+       for m, name in METRICS.items()},
+    # bytes over the copy span's seconds; the span alone (a program
+    # without the counter) reads None
+    "recording.decode_copy_gbps": ([("recording.decode_copy", 0.25, None),
+                                    ("recording.decode_copy", 0.75, None),
+                                    ("recording.decode_copy_bytes", 0.0, 3 * 10**9),
+                                    ("recording.decode_copy_bytes", 0.0, 10**9)], 4.0),
+}
+STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
            SyntheticTarget(range_m=16.9, doppler_bin_offset=-2))
 
@@ -161,6 +172,28 @@ def test_span_under_profiler_is_an_annotation(tmp_path):
     assert outer.seconds >= inner.seconds > 0
 
 
+def test_count_sums_into_items_under_the_profiler_only(tmp_path):
+    """Off the profiler a count leaves the collector empty and calls
+    nothing; under it the counts of a name sum into its ``items``, with no
+    seconds, and the first count of a stretch clears the one before."""
+    with pytest.MonkeyPatch.context() as mp:
+        _forbid_annotations(mp)
+        mp.setattr(torch.cuda, "synchronize", _forbid("synchronize"))
+        count("bytes", 5)
+    assert PROFILED.records == {}
+    with _Profiled(tmp_path / "1.json"):
+        with span("copy"):
+            count("bytes", 5)
+            count("bytes", 7)
+    rec = PROFILED.records["bytes"]
+    assert (rec.items, rec.count, rec.seconds) == (12, 2, 0.0)
+    assert set(PROFILED.records) == {"copy", "bytes"}
+    count("bytes", 1)  # between two stretches
+    with _Profiled(tmp_path / "2.json"):
+        count("bytes", 3)
+    assert {k: r.items for k, r in PROFILED.records.items()} == {"bytes": 3}
+
+
 @pytest.mark.parametrize("between", [True, False])
 def test_collector_holds_the_newest_profiled_stretch(tmp_path, between):
     """An unprofiled span between two profiled stretches clears the
@@ -232,7 +265,9 @@ def _assert_same(a, b, where="out"):
 @pytest.mark.parametrize("algo", ["fidelity", "production", "int8"])
 @pytest.mark.parametrize("frames", [8, 64])
 def test_process_recording_spans_once_and_outputs_identical(tmp_path, frames, algo):
-    """Each recording.* span and each stage once a call under the profiler;
+    """Each recording.* span and each stage once a call under the profiler,
+    and the counter recording.decode_copy_bytes once, with the bytes of the
+    trimmed maps in their store dtypes (a float32 dB map past nb_pad 512);
     every output, payloads included, bit-identical to an unprofiled call."""
     production = AlgorithmConfig.production()
     algos = {"fidelity": AlgorithmConfig(), "production": production,
@@ -246,7 +281,13 @@ def test_process_recording_spans_once_and_outputs_identical(tmp_path, frames, al
     for name in RECORDING_SPANS + STAGES:
         assert p.annotations.get(name) == 1, name
     assert {k: r.count for k, r in PROFILED.records.items()} == {
-        n: 1 for n in RECORDING_SPANS + STAGES}
+        n: 1 for n in RECORDING_SPANS + STAGES + ("recording.decode_copy_bytes",)}
+    a = cfg.algorithm
+    nb = got.spectrogram_psd_db.shape[0]
+    db_bytes = 4 if a.stft_db_store == "float32" or -(-nb // 8) * 8 > 512 else 2
+    assert PROFILED.records["recording.decode_copy_bytes"].items == (
+        got.spectrogram_intensity.size * STORE_BYTES[a.intensity_dtype]
+        + got.spectrogram_psd_db.size * db_bytes)
     _assert_same(dataclasses.asdict(got), dataclasses.asdict(want))
 
 
@@ -294,17 +335,21 @@ def _reader(metric):
     return mod.read
 
 
-@pytest.mark.parametrize("metric", sorted(METRICS))
+@pytest.mark.parametrize("metric", sorted(COLLECTOR_READERS))
 def test_span_metric_reads_the_collector(metric, monkeypatch):
-    """seconds / items in ms from a filled collector; None from an empty
-    one, and from a program without the collector."""
+    """Its reading from a filled collector (seconds / items in ms for a
+    span); None from an empty one, from one lacking the last record it
+    reads, and from a program without the collector."""
     read = _reader(metric)
     ctx = {"items": 4, "spans": {}}
     assert read(ctx) is None
-    PROFILED.add(METRICS[metric], 0.25)
-    PROFILED.add(METRICS[metric], 0.75)
-    PROFILED.add("another.span", 9.0)
-    assert read(ctx) == pytest.approx(1e3 * 1.0 / 4, rel=1e-12)
+    added, want = COLLECTOR_READERS[metric]
+    PROFILED.add("another.span", 9.0, 11)
+    for name, seconds, items in added:
+        if name == added[-1][0] and name not in PROFILED.records:
+            assert read(ctx) is None  # every record but the last one read
+        PROFILED.add(name, seconds, items)
+    assert read(ctx) == pytest.approx(want, rel=1e-12)
     monkeypatch.delattr(observe, "PROFILED")
     assert read(ctx) is None
 
@@ -355,8 +400,45 @@ def test_every_span_metric_is_declared():
     for metric in METRICS:
         m = declared[metric]
         assert (m["source"], m["unit"], m["better"]) == ("program_span", "ms", "lower")
-        assert m["workloads"] == ["production-65k.recording" if metric.startswith(
-            "recording.") else "stream-8ch.windows"]
+        assert m["workloads"] == (["production-65k.recording", "fidelity-1k.recording"]
+                                  if metric.startswith("recording.")
+                                  else ["stream-8ch.windows"])
+
+
+def test_counter_and_export_metrics_are_declared():
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    declared = {m["name"]: m for m in spec["per_layer"]}
+    assert declared["recording.decode_copy_gbps"] == {
+        "name": "recording.decode_copy_gbps", "unit": "GB/s", "better": "higher",
+        "source": "program_span", "layer": "host decode",
+        "moves": "recording_frames_per_s",
+        "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
+    assert declared["kernels_roofline_pct.export_tiled"] == {
+        "name": "kernels_roofline_pct.export_tiled", "unit": "%", "better": "higher",
+        "source": "device_trace", "layer": "kernels", "moves": "recording_frames_per_s",
+        "workloads": ["fidelity-1k.recording"]}
+
+
+def _kernel(name, dur_us, cat="kernel"):
+    return {"name": name, "cat": cat, "ts": 0.0, "dur": dur_us}
+
+
+def test_export_tiled_roofline_reads_the_tiled_pair():
+    """The export's least time (bytes bound here) times the items over the
+    device seconds of K4a and K4b alone, in percent; None where neither
+    ran."""
+    read = _reader("kernels_roofline_pct.export_tiled")
+    work = {"bytes": 1e12, "flops": 1e15, "export": {"bytes": 3.35e9, "flops": 6.7e9}}
+    others = [_kernel("void profile_wgmma_kernel<3, false>(float const*)", 9e3),
+              _kernel("Memcpy DtoH (Device -> Pageable)", 9e5, "gpu_memcpy"),
+              _kernel("void psd_tiled_kernel<true, false>(float const*)", 9e3, "gpu_memset")]
+    assert read({"items": 2, "events": [], "work": work}) is None
+    assert read({"items": 2, "events": others, "work": work}) is None
+    events = others + [_kernel("void psd_tiled_kernel<true, false>(float const*, int)", 1500.0),
+                       _kernel("void db_rescale_tiled_kernel<false, float, float>(Phase2Args)",
+                               2500.0)]
+    # least 1 ms (3.35 GB at 3.35 TB/s; 0.1 ms of operations) × 2 over 4 ms
+    assert read({"items": 2, "events": events, "work": work}) == pytest.approx(50.0, rel=1e-12)
 
 
 # --- on the card ------------------------------------------------------------------
