@@ -74,6 +74,26 @@ def _normalize_raw(raw: np.ndarray, nts: int) -> np.ndarray:
     return raw
 
 
+def _pinned_read_back(maps: list[torch.Tensor]) -> list[torch.Tensor] | None:
+    """The CUDA maps as contiguous host tensors in page-locked memory, or
+    None where the page-locked allocation raises (the host's locked-memory
+    limit). Each map is trimmed and widened to float32 on the card in one
+    kernel (int8 stays int8), then crosses the link once, into a buffer
+    taken per call from PyTorch's caching host allocator: the outputs stay
+    the caller's, and the blocks come back from the cache once the caller
+    drops them. One wait on the current stream, after every copy."""
+    dtypes = [torch.int8 if m.dtype == torch.int8 else torch.float32 for m in maps]
+    try:
+        hosts = [torch.empty(m.shape, dtype=d, pin_memory=True)
+                 for m, d in zip(maps, dtypes)]
+    except RuntimeError:
+        return None
+    for host, m in zip(hosts, maps):
+        host.copy_(m.to(host.dtype).contiguous(), non_blocking=True)
+    torch.cuda.current_stream(maps[0].device).synchronize()
+    return hosts
+
+
 @dataclasses.dataclass
 class RecordingOutputs:
     """Full-recording ('no') mode results (arrays host-side NumPy)."""
@@ -155,10 +175,14 @@ class RadarPipeline:
         valid): (times, log_bins, intensity, freqs, db) as NumPy arrays
         trimmed to the valid columns, or None if shorter than one window.
 
-        timer stages: "stft" (the device export, synced) and "host_decode"
-        (device-to-host copies, span "recording.decode_copy", with their
-        bytes counted as "recording.decode_copy_bytes", then widening to
-        float32, span "recording.decode_widen")."""
+        timer stages: "stft" (the device export, synced) and "host_decode":
+        the device-to-host copies, span "recording.decode_copy", with the
+        bytes that cross counted as "recording.decode_copy_bytes" and, on a
+        CUDA device, those landing in page-locked memory as
+        "recording.decode_pinned_bytes" (a CUDA map crosses widened to
+        float32 by :func:`_pinned_read_back`, else in its store dtype);
+        then what host work remains, span "recording.decode_widen": the
+        int8 decode, the widening of a pageable copy, the NumPy views."""
         tm = timer if timer is not None else NullTimer()
         a = self.cfg.algorithm
         wl = a.stft_window_length
@@ -205,14 +229,22 @@ class RadarPipeline:
             tm.observe((db, intensity))
         with tm.stage("host_decode", items=n_valid):
             with span("recording.decode_copy"):
-                intensity = intensity[:, :n_valid].cpu()
-                db = db[:, :n_valid].cpu()
-                observe.count("recording.decode_copy_bytes",
-                              intensity.nbytes + db.nbytes)
+                maps = [intensity[:, :n_valid], db[:, :n_valid]]
+                on_card = intensity.is_cuda
+                hosts = _pinned_read_back(maps) if on_card else None
+                pinned = hosts is not None
+                if not pinned:
+                    hosts = [m.cpu() for m in maps]
+                intensity, db = hosts
+                nbytes = intensity.nbytes + db.nbytes
+                observe.count("recording.decode_copy_bytes", nbytes)
+                if on_card:
+                    observe.count("recording.decode_pinned_bytes",
+                                  nbytes if pinned else 0)
             with span("recording.decode_widen"):
                 if a.intensity_dtype == "int8":
                     intensity_np = decode_db_int8(intensity)
-                else:  # bf16/f32 copied in the store dtype, widened on the host
+                else:  # float32 already where pinned; else widened here
                     intensity_np = intensity.to(torch.float32).numpy()
                 db_np = db.to(torch.float32).numpy()
         # Segment-centre times (t·hop + W/2)/fs, × the float32 reciprocal of

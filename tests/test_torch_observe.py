@@ -57,6 +57,12 @@ COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading
                                     ("recording.decode_copy", 0.75, None),
                                     ("recording.decode_copy_bytes", 0.0, 3 * 10**9),
                                     ("recording.decode_copy_bytes", 0.0, 10**9)], 4.0),
+    # 100 × the page-locked bytes over the bytes copied; the copied bytes
+    # alone (a program without the pinned counter) read None
+    "recording.decode_pinned_pct": ([("recording.decode_copy_bytes", 0.0, 3 * 10**9),
+                                     ("recording.decode_copy_bytes", 0.0, 10**9),
+                                     ("recording.decode_pinned_bytes", 0.0, 2 * 10**9),
+                                     ("recording.decode_pinned_bytes", 0.0, 10**9)], 75.0),
 }
 STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
@@ -410,6 +416,11 @@ def test_counter_and_export_metrics_are_declared():
     declared = {m["name"]: m for m in spec["per_layer"]}
     assert declared["recording.decode_copy_gbps"] == {
         "name": "recording.decode_copy_gbps", "unit": "GB/s", "better": "higher",
+        "source": "program_span", "layer": "host decode",
+        "moves": "recording_frames_per_s",
+        "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
+    assert declared["recording.decode_pinned_pct"] == {
+        "name": "recording.decode_pinned_pct", "unit": "%", "better": "higher",
         "source": "program_span", "layer": "host decode",
         "moves": "recording_frames_per_s",
         "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
