@@ -890,19 +890,6 @@ extern "C" int fast_time_profile_bf16_launch(const float* x,
                              groups, blocks, stream);
 }
 
-// K1c's registers a thread and shared memory (static, and the dynamic
-// bytes its launch requests) at 256-bin groups, as cudaFuncGetAttributes
-// reports them.
-extern "C" int fast_time_profile_bf16_attributes(int* regs, int* static_smem,
-                                                  int* dynamic_smem) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, profile_bf16_tma_kernel<kGroupSlices>);
-  *regs = a.numRegs;
-  *static_smem = (int)a.sharedSizeBytes;
-  *dynamic_smem = kBf16Smem;
-  return (int)err;
-}
-
 // K1b: six bf16 passes of the float32 blocked weight w [128, 2k] (split in
 // the kernel); x, off, prof, rows, k as fast_time_profile_b3_launch.
 extern "C" int fast_time_profile_launch(const float* x, const float* w,

@@ -137,8 +137,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fast_time_profile_b3_launch.restype = i
     lib.fast_time_profile_bf16_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.fast_time_profile_bf16_launch.restype = i
-    lib.fast_time_profile_bf16_attributes.argtypes = [p, p, p]
-    lib.fast_time_profile_bf16_attributes.restype = i
     lib.db_rescale_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i,
                                       f, f, f, f, p]
     lib.db_rescale_launch.restype = i

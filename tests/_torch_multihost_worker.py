@@ -1,7 +1,6 @@
 """Worker process of the port's true multi-process run: the counterpart of
 tests/_multihost_worker.py, launched by tests/test_torch_multihost_multiproc.py
-(gloo, on the CPU) and by ``chip_smoke.py --parallel-cards`` (NCCL, one
-card a process) as
+(gloo, on the CPU; and, in its ``cuda`` test, NCCL, one card a process) as
 
     python tests/_torch_multihost_worker.py <coordinator> <nproc> <pid> <outdir> <backend> <device>
 

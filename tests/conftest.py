@@ -76,3 +76,6 @@ def make_recording(
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips when there is none")
+    config.addinivalue_line(
+        "markers", "slow: takes minutes on a card (the 65,536-frame recording, "
+        "VGG16 training); deselected by -m 'not slow'")

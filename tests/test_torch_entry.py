@@ -5,7 +5,10 @@
 same 64 frames with the repo's chain and export bounds.
 ``dryrun_multichip`` runs at 1, 2 and 4 gloo ranks on the CPU (it checks
 every path against the single-process chain itself and raises on a
-mismatch), and raises when a path is broken.
+mismatch), and raises when a path is broken. The tests marked ``cuda``
+run it on the card: under gloo with every rank on one card, and under
+NCCL at world 1 and, with four cards, one card a rank; they skip without
+the cards they need.
 """
 
 import json
@@ -18,6 +21,11 @@ import torch
 import __graft_entry__ as graft
 from fmcw_radar_processing_tpu.serve.cli import main as jax_cli
 from fmcw_radar_processing_tpu_torch import entry as tentry
+from fmcw_radar_processing_tpu_torch.config import (
+    AlgorithmConfig,
+    RadarConfig,
+    default_device_config,
+)
 from fmcw_radar_processing_tpu_torch.serve.cli import main as cli
 from fmcw_radar_processing_tpu_torch.utils.observe import trace
 
@@ -146,3 +154,86 @@ def test_cli_process_trace_dir(tmp_path, capsys):
     jax_err = capsys.readouterr().err
     assert port_err.startswith(f"cannot create trace dir {bad}:")
     assert port_err == jax_err
+
+
+# --- on cards: the same dryrun under NCCL and with ranks on the card ----------
+
+# K1a's launches a rank on each path: once a chain call; streaming runs two
+# windows of two channels a rank.
+K1A_PER_PATH = {"dp": 1, "sp": 1, "multihost": 1, "tp": 0, "pp": 0, "stft": 0,
+                "train": 0, "stream": 4}
+FULL_FRAMES = 65_536  # the production-65k benchmark's recording
+PAR_FRAMES = 8_192  # gloo stages every collective through the host
+
+
+def _cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, found {torch.cuda.device_count()}")
+
+
+def _assert_world(reports, world: int, backend: str) -> None:
+    """Every rank ran under ``backend`` in a world of ``world``, launched
+    K1a as often as its paths ask; under NCCL rank r ran on cuda:r, every
+    card its own."""
+    assert all((r["world"], r["backend"]) == (world, backend) for r in reports)
+    if backend == "nccl":
+        assert [r["card"] for r in reports] == list(range(world))
+        assert len({r["uuid"] for r in reports}) == world
+    for p in (p for p in tentry.PATHS if p in reports[0]):
+        assert [r[p]["k1a"] for r in reports] == [K1A_PER_PATH[p]] * world, p
+
+
+def _full_recording():
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    return tentry.example_recording(cfg, FULL_FRAMES)
+
+
+@pytest.mark.cuda
+def test_dryrun_every_rank_on_one_card_under_gloo():
+    """Worlds 2 and 4 under gloo, every rank on cuda:0 (gloo's ranks may
+    share a card), at 8,192 frames and 256-frame stream windows: every
+    path passes its check on every rank, K1a counted on each."""
+    _cards(1)
+    runs = tentry.dryrun_multichip((2, 4), "gloo", torch.device("cuda", 0),
+                                   frames=PAR_FRAMES, stream_window=256)
+    for world in (2, 4):
+        _assert_world(runs[world], world, "gloo")
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_dryrun_world_1_under_nccl_at_full_size():
+    """World 1 under NCCL in this process on the 65,536-frame recording:
+    the Trainer step, the dp chain (bit-equal to make_frame_chain) and the
+    sp recording (against RadarPipeline) pass their checks."""
+    _cards(1)
+    reports = tentry.dryrun_multichip(1, "nccl", torch.device("cuda", 0),
+                                      recording=_full_recording(),
+                                      paths=("train", "dp", "sp"))
+    _assert_world(reports, 1, "nccl")
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_dryrun_one_card_a_rank_under_nccl_at_full_size():
+    """Worlds 1, 2 and 4 under NCCL, one card a rank, on the 65,536-frame
+    recording uncut: every path passes its check on every rank."""
+    _cards(4)
+    runs = tentry.dryrun_multichip((1, 2, 4), "nccl", "cuda",
+                                   recording=_full_recording(), stream_window=256)
+    for world in (1, 2, 4):
+        _assert_world(runs[world], world, "nccl")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_dryrun_one_card_a_rank(backend):
+    """Worlds 2 and 4, one card a rank, at 8,192 frames under each backend
+    (gloo stages its collectives through the host, NCCL does not): every
+    path passes its check on every rank."""
+    _cards(4)
+    runs = tentry.dryrun_multichip((2, 4), backend, "cuda", frames=PAR_FRAMES,
+                                   stream_window=256)
+    for world in (2, 4):
+        _assert_world(runs[world], world, backend)

@@ -209,11 +209,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f", [0, 9, 12, 1000])  # 9: not a whole row tile
+@pytest.mark.parametrize("f", [0, 9, 12, 1000, 65_536])  # 9: not a whole row tile
 @pytest.mark.parametrize("k", [128, 256, 320, 512])  # 320: a 64-bin group
 def test_k1c_kernel_matches_plain_at_k(cuda_device, k, f):
     """K1c vs its plain version (1e-2 + 1e-5·|ref|) and vs the exact
-    profile (between 40 and 80 dB) at K 128-512; F = 0 launches nothing."""
+    profile (between 40 and 80 dB) at K 128-512, up to the 65,536 frames
+    of the production-65k benchmark's recording; F = 0 launches
+    nothing."""
     jcfg, tcfg = _configs(k)
     raw, calib = _k1_inputs(jcfg, np.random.default_rng(k + f), f=max(f, 1))
     w, off, x = _k1_port(tcfg, raw[:f], calib, cuda_device)

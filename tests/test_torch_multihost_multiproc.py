@@ -10,7 +10,9 @@ feed their own contiguous half of the 32-frame, two-target recording
 directory, not a TCP port, so concurrent test workers cannot collide.
 The gathered arrays must be identical in both processes, bit-identical to
 the port's single-process chain, and within test_torch_parallel.py's
-bounds of JAX's ``make_sharded_frame_chain`` on the same recording.
+bounds of JAX's ``make_sharded_frame_chain`` on the same recording. The
+test marked ``cuda`` runs four such processes under NCCL, one card each,
+and skips on a machine with fewer cards.
 """
 
 import os
@@ -115,3 +117,54 @@ def test_processes_match_jax_sharded_chain(gathered):
     np.testing.assert_allclose(g0["range"], np.asarray(want.range), rtol=1e-6)
     np.testing.assert_allclose(g0["speed"], np.asarray(want.speed), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_processes_one_card_each_under_nccl(tmp_path):
+    """Four OS processes through multihost.initialize under NCCL, one card
+    each: every process gathers the same outputs, each ran on cuda:<pid>
+    with a UUID of its own and launched K1a once, all see host 0's
+    artifact; the waterfall and the detections are make_frame_chain's on
+    one card bit for bit, the ranges and speeds within
+    entry.check_vs_single's bounds."""
+    n = 4
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, found {torch.cuda.device_count()}")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, f"file://{tmp_path / 'rendezvous'}", str(n), str(pid),
+         str(tmp_path), "nccl", "cuda"], env=env, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"worker {pid} ok" in log, log[-3000:]
+    got = [dict(np.load(tmp_path / f"proc{pid}.npz")) for pid in range(n)]
+    for g in got:
+        for k in KEYS:
+            np.testing.assert_array_equal(g[k], got[0][k], err_msg=k)
+    assert [int(g["card"]) for g in got] == list(range(n))
+    assert len({str(g["uuid"]) for g in got}) == n
+    assert [int(g["k1a"]) for g in got] == [1] * n
+    assert (tmp_path / "host0_artifact").read_text() == "ok"
+    cfg = RadarConfig.create(default_device_config())
+    raw, calib = example_recording(cfg, FRAMES, seed=5)
+    dev = torch.device("cuda", 0)
+    want = make_frame_chain(cfg, dev)(torch.as_tensor(raw, device=dev),
+                                      torch.as_tensor(calib, device=dev))
+    g = got[0]
+    np.testing.assert_array_equal(g["waterfall"], want.waterfall.cpu().numpy())
+    np.testing.assert_array_equal(g["detected"], want.detected.cpu().numpy())
+    np.testing.assert_allclose(np.nan_to_num(g["range"]),
+                               np.nan_to_num(want.range.cpu().numpy()), rtol=1e-5)
+    np.testing.assert_allclose(np.nan_to_num(g["speed"]),
+                               np.nan_to_num(want.speed.cpu().numpy()),
+                               rtol=1e-4, atol=1e-6)

@@ -6,9 +6,10 @@ leaves the collector alone; under ``torch.profiler`` it is a
 ``user_annotation`` event of its name in the Chrome trace, with host
 seconds and a count in ``PROFILED``. The recording and streaming paths
 record each of their spans as often as the work runs and give the same
-results with the profiler on as off. Runs on the CPU; the one ``cuda``
-test checks on the card that a window with device-resident inputs makes
-no host synchronization.
+results with the profiler on as off. Runs on the CPU; the ``cuda``
+tests check on the card that a window with device-resident inputs makes
+no host synchronization, and that the CLI's ``process --trace-dir`` trace
+names K1a's kernel.
 """
 
 from __future__ import annotations
@@ -481,3 +482,58 @@ def test_window_on_card_makes_no_host_sync(monkeypatch):
         torch.cuda.set_sync_debug_mode(0)
     assert res.psd_db.shape[0] == 8 and PROFILED.records == {}
     assert [g.captured for g in proc._graphs.values()] == [True]  # replayed
+
+
+@pytest.mark.cuda
+def test_process_trace_dir_on_card_names_k1a(tmp_path):
+    """The CLI's process --trace-dir on the card (its default device): in a
+    process of its own, the trace's kernels include K1a
+    (profile_wgmma_kernel<3, false>, demangled or not); in this process,
+    with the launch counters reset, K1a runs. The recording is read by
+    the native reader (g++ builds it on the card's machine), byte-equal to
+    the NumPy reader."""
+    import re
+    import subprocess
+    import sys
+
+    from fmcw_radar_processing_tpu_torch.io.native_loader import native_available
+    from fmcw_radar_processing_tpu_torch.io.raw_format import (
+        load_recording_for_chain,
+        read_recording,
+        write_recording,
+    )
+    from fmcw_radar_processing_tpu_torch.ops import _lib
+    from fmcw_radar_processing_tpu_torch.serve import cli
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = RadarConfig.create(default_device_config())
+    base = str(tmp_path / "rec")
+    write_recording(base, synthesize_recording(
+        cfg, 256, (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),), seed=20261016))
+    assert native_available()
+    raw, calib, _ = load_recording_for_chain(base)
+    rec = read_recording(base)
+    assert raw.tobytes() == to_pair(rec.rx1()).tobytes()
+    np.testing.assert_allclose(calib, to_pair(rec.calib_vector(0, cfg.nts)), rtol=1e-6)
+
+    k1a = re.compile(r"profile_wgmma_kernel(ILi3ELb0E|<3, false>)")
+    for where in ("subprocess", "here"):
+        trace_dir = tmp_path / f"trace_{where}"
+        args = ["process", base, "--output-dir", str(tmp_path / f"out_{where}"),
+                "--trace-dir", str(trace_dir), "--compact-json"]
+        if where == "subprocess":
+            proc = subprocess.run([sys.executable, "-m",
+                                   "fmcw_radar_processing_tpu_torch.serve.cli", *args],
+                                  cwd=REPO, capture_output=True, text=True)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            files = list(trace_dir.iterdir())
+            assert len(files) == 1
+            events = json.loads(files[0].read_text())["traceEvents"]
+            kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+            assert any(k1a.search(k) for k in kernels), sorted(kernels)[:8]
+        else:
+            _lib.reset_launches()
+            assert cli.main(args) == 0
+            torch.cuda.synchronize()
+            assert _lib.LAUNCHES["fast_time_profile_b3"] >= 1

@@ -298,7 +298,11 @@ def test_cli_synth_process_serve_once(tmp_path):
 # --- (h) no jax in the port ---------------------------------------------------
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port's modules and the test modules written for the card alone,
+    which its machine must import without Flax or JAX."""
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "tests" / name for name in ("test_torch_card_models.py",
+                                           "test_torch_card_paths.py")]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))

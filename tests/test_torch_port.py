@@ -47,12 +47,11 @@ def _algos(mod):
 # --- the port imports nothing of the JAX package -----------------------------
 
 _IMPORT_SCRIPT = r"""
-import importlib, pkgutil, runpy, sys
+import importlib, pkgutil, sys
 import fmcw_radar_processing_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-runpy.run_path("chip_smoke.py", run_name="chip_smoke_imported")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "fmcw_radar_processing_tpu"))
 print("modules", len(names), "bad", bad)
@@ -68,10 +67,9 @@ assert not torch.distributed.is_initialized()  # importing starts no group
 """
 
 
-def test_port_and_chip_smoke_load_no_jax_package_module():
+def test_port_loads_no_jax_package_module():
     """Every submodule of the port (parallel/, io/native_loader.py,
-    entry.py and tools/ among them), and chip_smoke.py, imported in a fresh
-    process:
+    entry.py and tools/ among them) imported in a fresh process:
     sys.modules then holds no jax and no fmcw_radar_processing_tpu module,
     and no process group was started."""
     env = dict(os.environ, PYTHONPATH=str(REPO))

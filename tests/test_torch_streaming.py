@@ -10,7 +10,8 @@ tests/test_stft_pallas.py for the spectrogram.
 
 The ``cuda`` tests hold the card's CUDA-graph path to the card's eager
 path: bit-equal results, results that later windows leave alone, and the
-same kernel launches a window.
+same kernel launches a window; and the card's windows at the streaming
+benchmark's shape to the injected targets and to the CPU plain path.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from fmcw_radar_processing_tpu_torch.config import (
 )
 from fmcw_radar_processing_tpu_torch.dsp.detection import _gate_on
 from fmcw_radar_processing_tpu_torch.dsp.stft import DB_FLOOR, StftOperator, psd_db
+from fmcw_radar_processing_tpu_torch.io.synth import SyntheticTarget, synthesize_recording
 from fmcw_radar_processing_tpu_torch.ops import _lib
 from fmcw_radar_processing_tpu_torch.pipeline.streaming import (
     StreamingProcessor,
@@ -373,3 +375,91 @@ def test_graph_windows_launch_and_span_once(card, tmp_path):
     assert {k: r.count for k, r in PROFILED.records.items()} == {
         "stream.upload": 1, "stream.chain": 1, "stream.graph_replay": 1,
         "stream.stft": 1}
+
+
+def _snr_db(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    return -20.0 * float(np.log10(max(err, 1e-30)))
+
+
+@pytest.mark.cuda
+def test_card_windows_match_the_cpu_plain_path(card):
+    """The streaming benchmark's shape on the card: the production profile,
+    8 channels, 4 windows of 256 frames each from host arrays, a target of
+    its own on every channel and about a tenth of the frames muted. K1a
+    runs once a channel and window and nothing else does; every channel
+    detects its frames with targets, at its target's range and speed; the
+    columns over the windows are the detected samples less 19 a channel.
+    The first window (eager) and the second (replayed from the CUDA
+    graphs) against the port's CPU plain path fed the same windows (its
+    "auto" is the exact profile, the card's K1a's bf16x3): detections and
+    column counts equal, the waterfall within 100 dB, ranges and speeds at
+    rtol 1e-6, the PSD within 1e-4 of the max, the dB map within 1e-3 dB
+    above -100 dB and 2e-3 above -120 with its floors in the same places,
+    the norms and the carry at rtol 1e-5. Channel 0's four windows equal
+    one window of its 1,024 frames on the card, within 1e-5 of the max."""
+    channels, window, windows = 8, 256, 4
+    frames = window * windows
+    cfg = RadarConfig.create(default_device_config(), AlgorithmConfig.production())
+    step = np.float32(-cfg.derived.fd_per_bin * cfg.derived.hz_to_mps)
+    rng = np.random.default_rng(20261019)
+    raws, cals, present, want_rng, want_spd = [], [], [], [], []
+    for c in range(channels):
+        tgt = SyntheticTarget(range_m=4.5 + 1.6 * c,
+                              doppler_bin_offset=(3, -2, 1, -4, 2, -1, 4, -3)[c],
+                              amplitude=4.0)
+        pres = rng.random(frames) >= 0.1
+        rec = synthesize_recording(cfg, frames, (tgt,), seed=20261026 + c,
+                                   target_present=pres)
+        raws.append(to_pair(rec.rx1()).reshape(frames, cfg.pn, 2 * cfg.nts))
+        cals.append(to_pair(rec.calib_vector(0, cfg.nts)))
+        present.append(pres)
+        want_rng.append(np.float32(tgt.range_bin(cfg)) * np.float32(cfg.derived.dist_per_bin))
+        want_spd.append(np.float32(tgt.doppler_bin_offset) * step)
+    raw, cal, present = np.stack(raws), np.stack(cals), np.stack(present)
+    cuts = [slice(i * window, (i + 1) * window) for i in range(windows)]
+
+    proc = StreamingProcessor(cfg, channels, window, card)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    got = [proc.process_window(raw[:, cut], cal) for cut in cuts]
+    torch.cuda.synchronize()
+    assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+        "fast_time_profile_b3": channels * windows}
+    for r, cut in zip(got, cuts):
+        det = r.detected.cpu().numpy()
+        np.testing.assert_array_equal(det, present[:, cut])
+        rg, sd = r.range.cpu().numpy()[:, 0], r.speed.cpu().numpy()[:, 0]
+        for c in range(channels):
+            assert np.all(rg[c, det[c]] == want_rng[c])
+            assert np.all(np.isnan(rg[c, ~det[c]]))
+            assert np.all(sd[c, det[c]] == want_spd[c])
+    cols = sum(r.col_count.cpu().numpy().astype(np.int64) for r in got)
+    np.testing.assert_array_equal(cols, present.sum(1) * cfg.pn - 19)
+
+    cpu = StreamingProcessor(cfg, channels, window, "cpu")
+    for g, cut in zip(got[:2], cuts):
+        want = cpu.process_window(raw[:, cut], cal)
+        assert torch.equal(g.detected.cpu(), want.detected)
+        assert torch.equal(g.col_count.cpu(), want.col_count)
+        assert _snr_db(g.waterfall.cpu(), want.waterfall) >= 100.0
+        for name, atol in (("range", 0.0), ("speed", 1e-7)):
+            torch.testing.assert_close(getattr(g, name).cpu(), getattr(want, name),
+                                       rtol=1e-6, atol=atol, equal_nan=True)
+        scale = want.psd.amax(dim=(-2, -1), keepdim=True)
+        assert float(((g.psd.cpu() - want.psd).abs() / scale).max()) <= 1e-4
+        db, dbw = g.psd_db.cpu(), want.psd_db
+        assert torch.equal(db == DB_FLOOR, dbw == DB_FLOOR)
+        assert float((db - dbw).abs()[dbw > -100].max()) <= 1e-3
+        assert float((db - dbw).abs()[dbw > -120].max()) <= 2e-3
+        for name in ("norm_power", "carry"):
+            torch.testing.assert_close(getattr(g, name).cpu(), getattr(want, name),
+                                       rtol=1e-5, atol=0)
+
+    whole = StreamingProcessor(cfg, 1, frames, card).process_window(raw[:1], cal[:1])
+    n = [int(r.col_count[0]) for r in got]
+    assert sum(n) == int(whole.col_count[0])
+    split = torch.cat([r.psd[0, :, :k] for r, k in zip(got, n)], dim=1)
+    one = whole.psd[0, :, :sum(n)]
+    assert float(((split - one).abs() / one.max()).max()) <= 1e-5
