@@ -64,6 +64,18 @@ COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading
                                      ("recording.decode_copy_bytes", 0.0, 10**9),
                                      ("recording.decode_pinned_bytes", 0.0, 2 * 10**9),
                                      ("recording.decode_pinned_bytes", 0.0, 10**9)], 75.0),
+    # the raw's bytes over the upload span's seconds; the span alone (a
+    # program without the counter) reads None
+    "recording.upload_gbps": ([("recording.upload", 0.25, None),
+                               ("recording.upload", 0.75, None),
+                               ("recording.upload_bytes", 0.0, 6 * 10**9),
+                               ("recording.upload_bytes", 0.0, 2 * 10**9)], 8.0),
+    # 100 × the staged bytes over the uploaded bytes; the uploaded bytes
+    # alone (a program without the staging counter) read None
+    "recording.upload_staged_pct": ([("recording.upload_bytes", 0.0, 3 * 10**9),
+                                     ("recording.upload_bytes", 0.0, 10**9),
+                                     ("recording.upload_staged_bytes", 0.0, 0),
+                                     ("recording.upload_staged_bytes", 0.0, 10**9)], 25.0),
 }
 STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
@@ -288,7 +300,9 @@ def test_process_recording_spans_once_and_outputs_identical(tmp_path, frames, al
     for name in RECORDING_SPANS + STAGES:
         assert p.annotations.get(name) == 1, name
     assert {k: r.count for k, r in PROFILED.records.items()} == {
-        n: 1 for n in RECORDING_SPANS + STAGES + ("recording.decode_copy_bytes",)}
+        n: 1 for n in RECORDING_SPANS + STAGES + ("recording.decode_copy_bytes",
+                                                  "recording.upload_bytes")}
+    assert PROFILED.records["recording.upload_bytes"].items == raw.size * 2 * 4
     a = cfg.algorithm
     nb = got.spectrogram_psd_db.shape[0]
     db_bytes = 4 if a.stft_db_store == "float32" or -(-nb // 8) * 8 > 512 else 2
@@ -429,6 +443,18 @@ def test_counter_and_export_metrics_are_declared():
         "name": "kernels_roofline_pct.export_tiled", "unit": "%", "better": "higher",
         "source": "device_trace", "layer": "kernels", "moves": "recording_frames_per_s",
         "workloads": ["fidelity-1k.recording"]}
+
+
+def test_upload_metrics_are_declared():
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    declared = {m["name"]: m for m in spec["per_layer"]}
+    for name, unit in (("recording.upload_staged_pct", "%"),
+                       ("recording.upload_gbps", "GB/s")):
+        assert declared[name] == {
+            "name": name, "unit": unit, "better": "higher",
+            "source": "program_span", "layer": "recording entry",
+            "moves": "recording_frames_per_s",
+            "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
 
 
 def _kernel(name, dur_us, cat="kernel"):
