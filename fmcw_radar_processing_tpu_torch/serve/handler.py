@@ -11,6 +11,14 @@ Same request/response contract and steps as the JAX package's
 Steps: Read Files → Radar Processing → Upload JSON, each failing early
 with the reference's messages. "no" writes the four payloads and the PNG;
 "yes" (activity mode) writes one spectrogram JSON per batch.
+
+Under a ``torch.profiler`` session each step of a request is a span
+(utils/observe.py::span): ``service.download`` (both storage gets),
+``service.load`` (the XML, the native reader, the reshape),
+``service.pipeline`` (the chain and the export), ``service.json`` (each
+JSON artifact written, its bytes counted as ``service.json_bytes``),
+``service.png`` (the spectrogram image) and ``service.store`` (each
+upload). Off the profiler each costs one flag read.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from fmcw_radar_processing_tpu_torch.config import AlgorithmConfig, RadarConfig
 from fmcw_radar_processing_tpu_torch.io.raw_format import load_recording_for_chain
 from fmcw_radar_processing_tpu_torch.io.storage import Storage, get_storage
 from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json
+from fmcw_radar_processing_tpu_torch.utils.observe import count, span
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.spectrogram_image import (
     render_spectrogram_png,
@@ -79,24 +88,26 @@ class RadarService:
     def _download(self) -> str:
         """Step 1: fetch <fdata>.xml + <fdata>.raw.bin."""
         base = os.path.join(self.config.workdir, self.config.fdata)
-        for ext in (".xml", ".raw.bin"):
-            name = self.config.fdata + ext
-            _retry(
-                lambda n=name, e=ext: self.storage.get(n, base + e),
-                self.config.retries,
-                self.config.retry_backoff_s,
-            )
+        with span("service.download"):
+            for ext in (".xml", ".raw.bin"):
+                name = self.config.fdata + ext
+                _retry(
+                    lambda n=name, e=ext: self.storage.get(n, base + e),
+                    self.config.retries,
+                    self.config.retry_backoff_s,
+                )
         return base
 
     def _upload(self, path: str, content_type: str) -> int:
         if not self.config.upload:
             return 0
         name = os.path.basename(path)
-        _retry(
-            lambda: self.storage.put(path, name, content_type),
-            self.config.retries,
-            self.config.retry_backoff_s,
-        )
+        with span("service.store"):
+            _retry(
+                lambda: self.storage.put(path, name, content_type),
+                self.config.retries,
+                self.config.retry_backoff_s,
+            )
         return 1
 
     def _pipeline_for(self, cfg: RadarConfig) -> RadarPipeline:
@@ -110,33 +121,38 @@ class RadarService:
         """Step 2: the signal chain + JSON/PNG export + upload
         (radar_processing.m:195-436 'no' / :440-607 'yes').
         Returns (written paths, uploads)."""
-        raw, calib, device = load_recording(basepath)
+        with span("service.load"):
+            raw, calib, device = load_recording(basepath)
         if self.config.profile == "production":
             cfg = RadarConfig.create(device, AlgorithmConfig.production())
         else:
             cfg = RadarConfig.create(device)
         pipe = self._pipeline_for(cfg)
-        if activity:  # one JSON per batch (:593), no PNG
-            out = None
-            payloads = [(b.filename, b.payload)
-                        for b in pipe.process_activity(raw, calib)]
-        else:
-            out = pipe.process_recording(raw, calib)
-            payloads = list(out.payloads.items())
+        with span("service.pipeline"):
+            if activity:  # one JSON per batch (:593), no PNG
+                out = None
+                payloads = [(b.filename, b.payload)
+                            for b in pipe.process_activity(raw, calib)]
+            else:
+                out = pipe.process_recording(raw, calib)
+                payloads = list(out.payloads.items())
         written: list[str] = []
         uploaded = 0
         for name, payload in payloads:
             path = os.path.join(self.config.workdir, name)
-            write_json(path, payload, pretty=self.config.pretty_json)
+            with span("service.json"):
+                count("service.json_bytes",
+                      write_json(path, payload, pretty=self.config.pretty_json))
             uploaded += self._upload(path, "application/json")
             written.append(path)
         if out is not None:
             png = os.path.join(self.config.workdir, "spectrogram.png")
             # The reference renders the LINEAR-frequency dB PSD
             # (radar_processing.m:331-340); only the JSON is log-rescaled.
-            render_spectrogram_png(png, out.spectrogram_times,
-                                   out.spectrogram_linear_freqs,
-                                   out.spectrogram_psd_db)
+            with span("service.png"):
+                render_spectrogram_png(png, out.spectrogram_times,
+                                       out.spectrogram_linear_freqs,
+                                       out.spectrogram_psd_db)
             uploaded += self._upload(png, "image/png")  # :348
             written.append(png)
         return written, uploaded

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import threading
 from typing import Any
 
@@ -163,8 +164,10 @@ def _dumps_flat_fast(obj: dict, pretty: bool) -> str | None:
     return "{" + ", ".join(parts) + "}"
 
 
-def write_json(path: str, obj: dict, pretty: bool = True) -> str:
+def write_json(path: str, obj: dict, pretty: bool = True) -> int:
+    """Write ``obj`` to ``path`` as :func:`dumps_matlab` renders it; returns
+    the bytes written."""
     text = dumps_matlab(obj, pretty=pretty)
     with open(path, "w", encoding="utf-8") as f:
         f.write(text)
-    return path
+    return os.path.getsize(path)

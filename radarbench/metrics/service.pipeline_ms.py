@@ -1,0 +1,13 @@
+"""The program's span ``service.pipeline``: RadarPipeline.process_recording
+(or process_activity) inside RadarService._process: upload, chain,
+export, read-back, payloads. Its host seconds per call in the traced
+slice, on the profiler's clock, from the program's collector
+(utils/observe.py::PROFILED); None where the program has no such span."""
+
+
+def read(ctx):
+    from fmcw_radar_processing_tpu_torch.utils import observe
+
+    collector = getattr(observe, "PROFILED", None)
+    rec = collector.records.get("service.pipeline") if collector is not None else None
+    return 1e3 * rec.seconds / ctx["items"] if rec is not None else None

@@ -311,6 +311,61 @@ def test_service_answers_on_card(card, small, tmp_path, profile):
         _serve_yes(svc, work, present, cfg.pn)
 
 
+ARTIFACTS = ("spectrogram_data.json", "radar_data_range_fft_data.json",
+             "radar_data_range_speed_data.json", "radar_data_fft_data.json",
+             "spectrogram.png")
+
+
+@pytest.mark.cuda
+def test_http_process_on_card_from_worker_threads(card, small, tmp_path):
+    """POST /process 'no' at the default profile through RadarHttpService
+    on the card: each request runs on a worker thread of its own (the
+    upload's page-locked ring and the read-back's page-locked buffers from
+    a thread that did not create them), three in turn, and every artifact
+    is byte-equal to one written by RadarService.main on this thread."""
+    import threading
+    import urllib.request
+
+    from fmcw_radar_processing_tpu_torch.serve.http_service import RadarHttpService
+
+    rec, _, _, _ = small
+    blobs, work, here = (str(tmp_path / d) for d in ("blobs", "work", "here"))
+    os.makedirs(work)
+    os.makedirs(here)
+    store = LocalStorage(blobs)
+    xml, bin_ = write_recording(str(tmp_path / "radar_data"), rec)
+    store.put(xml, "radar_data.xml")
+    store.put(bin_, "radar_data.raw.bin")
+    svc = RadarService(HandlerConfig(workdir=here, storage_spec=f"local:{blobs}",
+                                     upload=False, pretty_json=False))
+    assert svc.main({"processAnimalActivity": "no"})["status"] == "success"
+    want = {n: open(os.path.join(here, n), "rb").read() for n in ARTIFACTS}
+
+    threads = []
+    main = RadarService.main
+
+    def on_thread(self, request=None):
+        threads.append(threading.current_thread())
+        return main(self, request)
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    hc = HandlerConfig(workdir=work, storage_spec=f"local:{blobs}", pretty_json=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(RadarService, "main", on_thread)
+        with RadarHttpService(hc, port=0, host="127.0.0.1") as srv:
+            for _ in range(3):
+                req = urllib.request.Request(
+                    srv.url + "process", data=b'{"processAnimalActivity": "no"}',
+                    headers={"Content-Type": "application/json"})
+                with opener.open(req, timeout=300) as r:
+                    assert json.loads(r.read())["status"] == "success"
+                for n in ARTIFACTS:
+                    with open(os.path.join(blobs, n), "rb") as fh:
+                        assert fh.read() == want[n], n
+    assert len({id(t) for t in threads}) == 3
+    assert threading.main_thread() not in threads
+
+
 # --- the production recording at full size (65,536 frames) -------------------
 
 

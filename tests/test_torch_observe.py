@@ -6,17 +6,21 @@ leaves the collector alone; under ``torch.profiler`` it is a
 ``user_annotation`` event of its name in the Chrome trace, with host
 seconds and a count in ``PROFILED``. The recording and streaming paths
 record each of their spans as often as the work runs and give the same
-results with the profiler on as off. Runs on the CPU; the ``cuda``
-tests check on the card that a window with device-resident inputs makes
+results with the profiler on as off; a ``/process`` request served on the
+HTTP server's own thread records the service's spans and counter. Runs
+on the CPU; the ``cuda`` tests check on the card that a window with device-resident inputs makes
 no host synchronization, and that the CLI's ``process --trace-dir`` trace
 names K1a's kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
+import threading
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -29,9 +33,12 @@ from fmcw_radar_processing_tpu_torch.config import (
     RadarConfig,
     default_device_config,
 )
+from fmcw_radar_processing_tpu_torch.io.raw_format import write_recording
 from fmcw_radar_processing_tpu_torch.io.synth import SyntheticTarget, synthesize_recording
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.streaming import StreamingProcessor
+from fmcw_radar_processing_tpu_torch.serve.handler import HandlerConfig, RadarService
+from fmcw_radar_processing_tpu_torch.serve.http_service import RadarHttpService
 from fmcw_radar_processing_tpu_torch.utils import observe
 from fmcw_radar_processing_tpu_torch.utils.cplx import to_pair
 from fmcw_radar_processing_tpu_torch.utils.observe import PROFILED, StageTimer, count, span
@@ -48,7 +55,17 @@ METRICS = {  # reader (radarbench/metrics/<name>.py) -> the span it reads
     "stream.upload_host_ms": "stream.upload",
     "stream.chain_dispatch_ms": "stream.chain",
     "stream.stft_dispatch_ms": "stream.stft",
+    "service.download_ms": "service.download",
+    "service.load_ms": "service.load",
+    "service.pipeline_ms": "service.pipeline",
+    "service.json_ms": "service.json",
+    "service.png_ms": "service.png",
+    "service.store_ms": "service.store",
 }
+SERVICE_SPANS = {"service.download": 1, "service.load": 1, "service.pipeline": 1,
+                 "service.json": 4, "service.png": 1, "service.store": 5}
+RECORDING_CELLS = ["production-65k.recording", "fidelity-1k.recording"]
+SERVICE_CELL = "service-1k.process"
 COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading)
     **{m: ([(name, 0.25, None), (name, 0.75, None)], 1e3 * 1.0 / 4)
        for m, name in METRICS.items()},
@@ -76,6 +93,11 @@ COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading
                                      ("recording.upload_bytes", 0.0, 10**9),
                                      ("recording.upload_staged_bytes", 0.0, 0),
                                      ("recording.upload_staged_bytes", 0.0, 10**9)], 25.0),
+    # the JSON artifacts' bytes over the writer span's seconds; the span
+    # alone (a program without the counter) reads None
+    "service.json_gbps": ([("service.json", 0.25, None), ("service.json", 0.75, None),
+                           ("service.json_bytes", 0.0, 3 * 10**9),
+                           ("service.json_bytes", 0.0, 10**9)], 4.0),
 }
 STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
@@ -333,16 +355,75 @@ def test_process_window_spans_and_results(tmp_path, channels):
                                        rtol=0, atol=0, equal_nan=True)
 
 
-def test_paths_open_no_annotation_and_no_sync_without_profiler(no_annotation_no_sync):
-    """With no profiler the recording and the streaming paths open no
-    record_function and call no device sync (both raise here)."""
+def test_paths_open_no_annotation_and_no_sync_without_profiler(no_annotation_no_sync,
+                                                               tmp_path):
+    """With no profiler the recording and the streaming paths, and a
+    /process request served by the HTTP service, open no record_function
+    and call no device sync (both raise here)."""
     cfg, raw, calib = _recording(8, AlgorithmConfig.production())
     RadarPipeline(cfg, device="cpu").process_recording(raw, calib, timer=StageTimer())
     windows, cal = _windows(cfg, 2, 2, 8, seed=1)
     proc = StreamingProcessor(cfg, 2, 8, device="cpu", nfft=64)
     for w in windows:
         proc.process_window(w, cal)
+    with _served(tmp_path, 8) as (srv, _):
+        assert _process(srv)["status"] == "success"
     assert PROFILED.records == {}
+
+
+# --- the service's spans --------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _served(tmp_path, frames):
+    """A RadarHttpService on 127.0.0.1 at the default profile on the CPU,
+    over local blob storage holding a recording of ``frames`` frames;
+    yields (server, blob directory)."""
+    cfg = RadarConfig.create(default_device_config())
+    blobs, work = tmp_path / "blobs", tmp_path / "work"
+    blobs.mkdir()
+    work.mkdir()
+    write_recording(str(blobs / "radar_data"),
+                    synthesize_recording(cfg, frames, TARGETS, seed=frames))
+    hc = HandlerConfig(workdir=str(work), storage_spec=f"local:{blobs}", device="cpu")
+    with RadarHttpService(hc, port=0, host="127.0.0.1") as srv:
+        yield srv, blobs
+
+
+def _process(srv) -> dict:
+    req = urllib.request.Request(srv.url + "process",
+                                 data=json.dumps({"processAnimalActivity": "no"}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def test_process_request_on_the_server_thread_fills_the_collector(tmp_path, monkeypatch):
+    """Under torch.profiler, a /process request served on the HTTP server's
+    own worker thread records each service.* span as often as its step
+    runs (four JSON artifacts, five uploads) and the recording's spans;
+    service.json_bytes sums the four JSON blobs' sizes."""
+    threads = []
+    main = RadarService.main
+
+    def on_thread(self, request=None):
+        threads.append(threading.current_thread())
+        return main(self, request)
+
+    monkeypatch.setattr(RadarService, "main", on_thread)
+    with _served(tmp_path, 64) as (srv, blobs):
+        with _Profiled(tmp_path / "t.json"):
+            assert _process(srv)["status"] == "success"
+    assert len(threads) == 1 and threads[0] is not threading.main_thread()
+    assert {k: r.count for k, r in PROFILED.records.items()
+            if k in SERVICE_SPANS} == SERVICE_SPANS
+    assert all(PROFILED.records[k].seconds > 0 for k in SERVICE_SPANS)
+    assert set(RECORDING_SPANS) <= set(PROFILED.records)
+    sizes = sum(p.stat().st_size for p in blobs.glob("*.json"))
+    rec = PROFILED.records["service.json_bytes"]
+    assert (rec.items, rec.count, rec.seconds) == (sizes, 4, 0.0)
+    assert len(list(blobs.glob("*.json"))) == 4
 
 
 # --- the benchmark's readers of the spans ---------------------------------------
@@ -418,12 +499,18 @@ def test_cpu_windows_open_no_graph_replay(tmp_path, db_mode):
 def test_every_span_metric_is_declared():
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     declared = {m["name"]: m for m in spec["per_layer"]}
+    also_service = ("recording.upload_host_ms", "recording.decode_copy_ms")
     for metric in METRICS:
         m = declared[metric]
         assert (m["source"], m["unit"], m["better"]) == ("program_span", "ms", "lower")
-        assert m["workloads"] == (["production-65k.recording", "fidelity-1k.recording"]
-                                  if metric.startswith("recording.")
-                                  else ["stream-8ch.windows"])
+        if metric.startswith("recording."):
+            want = RECORDING_CELLS + ([SERVICE_CELL] if metric in also_service else [])
+        elif metric.startswith("service."):
+            want = [SERVICE_CELL]
+            assert (m["layer"], m["moves"]) == ("service", "recording_frames_per_s")
+        else:
+            want = ["stream-8ch.windows"]
+        assert m["workloads"] == want, metric
 
 
 def test_counter_and_export_metrics_are_declared():
@@ -432,8 +519,11 @@ def test_counter_and_export_metrics_are_declared():
     assert declared["recording.decode_copy_gbps"] == {
         "name": "recording.decode_copy_gbps", "unit": "GB/s", "better": "higher",
         "source": "program_span", "layer": "host decode",
-        "moves": "recording_frames_per_s",
-        "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
+        "moves": "recording_frames_per_s", "workloads": RECORDING_CELLS + [SERVICE_CELL]}
+    assert declared["service.json_gbps"] == {
+        "name": "service.json_gbps", "unit": "GB/s", "better": "higher",
+        "source": "program_span", "layer": "service",
+        "moves": "recording_frames_per_s", "workloads": [SERVICE_CELL]}
     assert declared["recording.decode_pinned_pct"] == {
         "name": "recording.decode_pinned_pct", "unit": "%", "better": "higher",
         "source": "program_span", "layer": "host decode",

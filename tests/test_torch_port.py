@@ -200,7 +200,8 @@ def test_local_storage_and_spec(tmp_path):
 @pytest.mark.parametrize("pretty", [True, False])
 def test_write_json_of_payloads_byte_identical(tmp_path, pretty):
     """The four payloads of one recording (the port's CPU pipeline) written
-    by both packages' write_json: the same bytes."""
+    by both packages' write_json: the same bytes; the port's returns how
+    many it wrote."""
     from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 
     cfg = tconfig.RadarConfig.create(tconfig.default_device_config())
@@ -209,9 +210,11 @@ def test_write_json_of_payloads_byte_identical(tmp_path, pretty):
         rec.rx1_pair(), rec.calib_pair(0, cfg.nts))
     assert len(out.payloads) == 4
     for name, payload in out.payloads.items():
-        a = tjson.write_json(str(tmp_path / f"t_{name}"), payload, pretty=pretty)
+        a = tmp_path / f"t_{name}"
+        n = tjson.write_json(str(a), payload, pretty=pretty)
         b = jjson.write_json(str(tmp_path / f"j_{name}"), payload, pretty=pretty)
-        assert Path(a).read_bytes() == Path(b).read_bytes(), name
+        assert a.read_bytes() == Path(b).read_bytes(), name
+        assert n == a.stat().st_size, name
     odd = {"m": np.array([[1.5, np.nan], [np.inf, -0.0]] * 300, np.float32),
            "v": np.arange(600, dtype=np.float64) / 7, "n": None, "s": "x",
            "nested": {"a": [1, 2.5, np.float32(3)]}, "b": np.bool_(True)}
