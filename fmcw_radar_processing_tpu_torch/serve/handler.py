@@ -16,7 +16,8 @@ Under a ``torch.profiler`` session each step of a request is a span
 (utils/observe.py::span): ``service.download`` (both storage gets),
 ``service.load`` (the XML, the native reader, the reshape),
 ``service.pipeline`` (the chain and the export), ``service.json`` (each
-JSON artifact written, its bytes counted as ``service.json_bytes``),
+JSON artifact written, its bytes counted as ``service.json_bytes`` and
+those the native writer streamed as ``service.json_streamed_bytes``),
 ``service.png`` (the spectrogram image) and ``service.store`` (each
 upload). Off the profiler each costs one flag read.
 """
@@ -31,7 +32,7 @@ from typing import Any, Callable
 from fmcw_radar_processing_tpu_torch.config import AlgorithmConfig, RadarConfig
 from fmcw_radar_processing_tpu_torch.io.raw_format import load_recording_for_chain
 from fmcw_radar_processing_tpu_torch.io.storage import Storage, get_storage
-from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json
+from fmcw_radar_processing_tpu_torch.utils.jsonio import write_json_counts
 from fmcw_radar_processing_tpu_torch.utils.observe import count, span
 from fmcw_radar_processing_tpu_torch.pipeline.recording import RadarPipeline
 from fmcw_radar_processing_tpu_torch.pipeline.spectrogram_image import (
@@ -141,8 +142,10 @@ class RadarService:
         for name, payload in payloads:
             path = os.path.join(self.config.workdir, name)
             with span("service.json"):
-                count("service.json_bytes",
-                      write_json(path, payload, pretty=self.config.pretty_json))
+                nbytes, streamed = write_json_counts(
+                    path, payload, pretty=self.config.pretty_json)
+                count("service.json_bytes", nbytes)
+                count("service.json_streamed_bytes", streamed)
             uploaded += self._upload(path, "application/json")
             written.append(path)
         if out is not None:

@@ -20,7 +20,7 @@ BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build")
 
 def build_so(source: str, library: str) -> ctypes.CDLL:
     """Load ``build/<library>``, first compiling ``native/<source>`` with
-    ``g++ -O3 -shared`` when needed. Raises when the build fails (no
+    ``g++ -O3 -shared -pthread`` when needed. Raises when the build fails (no
     compiler, no source) or the library does not load."""
     src = os.path.abspath(os.path.join(NATIVE_DIR, source))
     so = os.path.join(BUILD_DIR, library)
@@ -29,7 +29,8 @@ def build_so(source: str, library: str) -> ctypes.CDLL:
     ):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                        "-o", tmp], check=True, capture_output=True, text=True)
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                        "-pthread", src, "-o", tmp],
+                       check=True, capture_output=True, text=True)
         os.replace(tmp, so)  # atomic for concurrent builders
     return ctypes.CDLL(so)

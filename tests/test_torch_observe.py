@@ -98,6 +98,12 @@ COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading
     "service.json_gbps": ([("service.json", 0.25, None), ("service.json", 0.75, None),
                            ("service.json_bytes", 0.0, 3 * 10**9),
                            ("service.json_bytes", 0.0, 10**9)], 4.0),
+    # 100 × the natively streamed bytes over the JSON artifacts' bytes; the
+    # JSON bytes alone (a program without the streaming counter) read None
+    "service.json_streamed_pct": ([("service.json_bytes", 0.0, 3 * 10**9),
+                                   ("service.json_bytes", 0.0, 10**9),
+                                   ("service.json_streamed_bytes", 0.0, 0),
+                                   ("service.json_streamed_bytes", 0.0, 3 * 10**9)], 75.0),
 }
 STORE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 TARGETS = (SyntheticTarget(range_m=7.5, doppler_bin_offset=3),
