@@ -17,6 +17,11 @@ at hop 1 are the columns plus the window less one.
 ``recording_work`` and ``activity_work`` give beside their totals the
 share of the spectrogram export alone, under "export".
 
+``vgg16_work`` counts a classifier's forward: 2 operations a multiply-add
+of its convolutions and Dense layers, against the bf16 peak it computes
+in; bytes of each layer's input and output in bf16, and the weights in
+bf16 once a forward.
+
 Peaks: NVIDIA's data sheet for the H100 SXM (dense, at the 700 W limit).
 """
 
@@ -26,7 +31,8 @@ import math
 
 from radarbench.reference.compare import next_pow2
 
-PEAKS = {"bytes_per_s": 3.35e12, "float32_flop_per_s": 67e12}
+PEAKS = {"bytes_per_s": 3.35e12, "float32_flop_per_s": 67e12,
+         "bfloat16_flop_per_s": 989e12}
 DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 
@@ -49,9 +55,10 @@ def stft_nfft(cfg: dict, columns: int) -> int:
     return next_pow2(columns + alg["stft_window_length"] - 1)
 
 
-def least_seconds(nbytes: float, flops: float) -> tuple[float, str]:
+def least_seconds(nbytes: float, flops: float,
+                  flop_peak: str = "float32_flop_per_s") -> tuple[float, str]:
     tb = nbytes / PEAKS["bytes_per_s"]
-    tf = flops / PEAKS["float32_flop_per_s"]
+    tf = flops / PEAKS[flop_peak]
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -120,3 +127,32 @@ def stream_window_work(cfg: dict) -> dict:
     out = f * (k * 4 + 3 * 4 + 1) + 2 * nb * cols * 4
     ops += fft_flops(cfg["nfft"], cols, real=True)
     return {"bytes": c * (raw + out), "flops": c * ops}
+
+
+def vgg16_work(input_shape, blocks, head: int, images: int, forwards: int = 1) -> dict:
+    """``images`` NHWC images of ``input_shape`` through a VGG backbone of
+    ``blocks`` ((convolutions, channels) per block: 3×3 'SAME'
+    convolutions and ReLU, then a 2×2 max-pool) and the head Flatten →
+    Dense(``head``) → Dense(1), in ``forwards`` forwards. Bytes: the
+    float32 images read once, each convolution's, pool's and Dense's input
+    and output once in bf16, the logits in float32, and the weights in
+    bf16 once a forward. Only these images are counted: rows a program
+    pads a batch with are its own waste."""
+    h, w, cin = input_shape
+    act = flops = params = 0
+    for convs, ch in blocks:
+        for _ in range(convs):
+            flops += 2 * h * w * 9 * cin * ch
+            act += h * w * (cin + ch)
+            params += 9 * cin * ch + ch
+            cin = ch
+        act += h * w * ch + (h // 2) * (w // 2) * ch  # the pool
+        h, w = h // 2, w // 2
+    feats = h * w * cin
+    flops += 2 * (feats * head + head)
+    act += feats + head + head
+    params += feats * head + head + head + 1
+    pixels = input_shape[0] * input_shape[1] * input_shape[2]
+    nbytes = images * (4 * pixels + 2 * act + 4) + forwards * 2 * params
+    return {"bytes": float(nbytes), "flops": float(images * flops),
+            "flop_peak": "bfloat16_flop_per_s"}

@@ -18,8 +18,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[2]
 DATA_DIRS = ("configs", "traffic", "limits", "metrics", "drivers")
-TINY = {"frames": 512, "channels": 2, "window_frames": 32}
-TINY_TRAFFIC = {"pool_windows": 3, "enqueue_items": 3, "trace_items": 4}
+TINY = {"frames": 512, "channels": 2, "window_frames": 32, "input_shape": [32, 32, 3]}
+TINY_TRAFFIC = {"pool_windows": 3, "enqueue_items": 3, "trace_items": 4,
+                "client_threads": 2, "images_per_request": 2}
 
 
 def pytest_configure(config):
@@ -37,9 +38,12 @@ def card():
 
 def with_deferred(spec: dict, deferred: dict) -> dict:
     """``spec`` (BENCHMARK.json) with the deferred cells, their
-    configurations and their metrics' ``workloads`` put back."""
+    configurations, the metrics of their own and the other metrics'
+    ``workloads`` put back."""
     spec["configs"] += deferred["configs"]
     spec["workloads"] += deferred["workloads"]
+    spec["end_to_end"] += deferred.get("end_to_end", [])
+    spec["per_layer"] += deferred.get("per_layer", [])
     for m in spec["end_to_end"] + spec["per_layer"]:
         m.get("workloads", []).extend(deferred["metric_workloads"].get(m["name"], []))
     return spec

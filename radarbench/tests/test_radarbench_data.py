@@ -14,7 +14,12 @@ from pathlib import Path
 import pytest
 
 from radarbench import harness, roofline
-from radarbench.tests.conftest import REPO, add_fidelity_rehearsal, make_root
+from radarbench.tests.conftest import (
+    REPO,
+    add_fidelity_rehearsal,
+    make_root,
+    spec_with_deferred,
+)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -97,9 +102,10 @@ def test_per_layer_workloads_name_cells():
 
 
 def _states_a_profile_of_the_program(spec: dict, root: Path) -> None:
-    """Each configuration's algorithm is, field for field, one of the
-    port's two named profiles: AlgorithmConfig.production() or the bare
-    AlgorithmConfig() (the HTTP handler's "production" and "fidelity")."""
+    """Each configuration's algorithm, where it has one, is, field for
+    field, one of the port's two named profiles: AlgorithmConfig.production()
+    or the bare AlgorithmConfig() (the HTTP handler's "production" and
+    "fidelity")."""
     from fmcw_radar_processing_tpu_torch.config.radar import (
         AlgorithmConfig,
         default_device_config,
@@ -109,6 +115,8 @@ def _states_a_profile_of_the_program(spec: dict, root: Path) -> None:
                 dataclasses.asdict(AlgorithmConfig())]
     for c in spec["configs"]:
         cfg = json.loads((root / c["file"]).read_text())
+        if "algorithm" not in cfg:
+            continue
         assert cfg["algorithm"] in profiles, c["name"]
         assert cfg["device"] == dataclasses.asdict(default_device_config())
         assert cfg["reduced"] == c["reduced"]
@@ -128,6 +136,59 @@ def test_a_config_of_neither_profile_is_refused(tmp_path, field, value):
     path.write_text(json.dumps(cfg))
     with pytest.raises(AssertionError):
         _states_a_profile_of_the_program(BENCH, root)
+
+
+def _states_one_kind(spec: dict, root: Path) -> None:
+    """Each configuration states a radar profile ("algorithm") or a
+    classifier ("model"), not both and not neither."""
+    for c in spec["configs"]:
+        cfg = json.loads((root / c["file"]).read_text())
+        assert ("algorithm" in cfg) != ("model" in cfg), c["name"]
+
+
+def _states_the_published_vgg16(spec: dict, root: Path) -> None:
+    """Each configuration's model, where it has one, is the port's
+    published VGG16: VGG16_BLOCKS, 224×224×3 images, a head of 256, bf16."""
+    from fmcw_radar_processing_tpu_torch.models.vgg import VGG16_BLOCKS
+
+    for c in spec["configs"]:
+        cfg = json.loads((root / c["file"]).read_text())
+        if "model" not in cfg:
+            continue
+        assert cfg["model"] == "vgg16", c["name"]
+        assert [tuple(b) for b in cfg["blocks"]] == list(VGG16_BLOCKS), c["name"]
+        assert cfg["input_shape"] == [224, 224, 3] and cfg["head"] == 256, c["name"]
+        assert cfg["dtype"] == "bfloat16", c["name"]
+        assert cfg["reduced"] == c["reduced"]
+
+
+def test_configs_state_one_kind():
+    _states_one_kind(spec_with_deferred(), REPO)
+
+
+def test_model_configs_state_the_published_vgg16():
+    spec = spec_with_deferred()
+    assert any("model" in json.loads((REPO / c["file"]).read_text()) for c in spec["configs"])
+    _states_the_published_vgg16(spec, REPO)
+
+
+@pytest.mark.parametrize("name,edit,check", [
+    ("production-65k", lambda cfg: cfg.pop("algorithm"), _states_one_kind),
+    ("production-65k", lambda cfg: cfg.update(model="vgg16"), _states_one_kind),
+    ("vgg16-224", lambda cfg: cfg.update(head=128), _states_the_published_vgg16),
+    ("vgg16-224", lambda cfg: cfg.update(input_shape=[112, 112, 3]),
+     _states_the_published_vgg16),
+    ("vgg16-224", lambda cfg: cfg["blocks"].pop(), _states_the_published_vgg16),
+])
+def test_a_config_of_neither_kind_or_both_or_a_cut_vgg16_is_refused(tmp_path, name, edit,
+                                                                   check):
+    root = make_root(tmp_path / "checkout", tiny=False)
+    path = root / "radarbench" / "configs" / f"{name}.json"
+    cfg = json.loads(path.read_text())
+    edit(cfg)
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(AssertionError):
+        check(spec_with_deferred(), root)
 
 
 DUMMY_DRIVER = '''
