@@ -195,6 +195,14 @@ def decode_db_int8(arr) -> np.ndarray:
             * np.float32(int8_db_step()) + np.float32(lo))
 
 
+def decode_db_int8_into(out: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_db_int8` on the codes' device, into float32 ``out``:
+    the same float32 steps (+128, ×step, +lo), each rounded on its own, so
+    the values are its own bit for bit."""
+    lo, _ = INT8_DB_RANGE
+    return out.copy_(codes).add_(128.0).mul_(float(np.float32(int8_db_step()))).add_(lo)
+
+
 def psd_db(power: torch.Tensor, gmax: torch.Tensor | None = None) -> torch.Tensor:
     """Reference dB normalization 20·log10(P / gmax) (radar_processing.m:
     282-283), written as the export kernel computes it:

@@ -11,9 +11,12 @@ arrays.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
+import mmap
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from fmcw_radar_processing_tpu_torch.dsp.fast_time import PackedFastTime
 from fmcw_radar_processing_tpu_torch.dsp.stft import (
     StftOperator,
     decode_db_int8,
+    decode_db_int8_into,
     log_bins_axis,
     log_frequency_rescale,
     psd_db,
@@ -61,6 +65,14 @@ _STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _STAGING_SLOT_BYTES = 8 << 20
 _STAGING_SLOTS = 2
 
+# The maps' read-back: a device slot of at most this many bytes, each block
+# of rows widened into it and copied out to the host in turn; and the free
+# page-locked host blocks kept for reuse: one call's two maps and one kept
+# result's.
+_DECODE_SLOT_BYTES = 256 << 20
+_HOST_BLOCKS_KEPT = 4
+_HOST_REGISTER_PORTABLE = 1  # cudaHostRegisterPortable
+
 
 def _normalize_raw(raw: np.ndarray, nts: int) -> np.ndarray:
     """Normalize any accepted raw layout to flat pair rows [F, PN, 2·NTS].
@@ -82,24 +94,161 @@ def _normalize_raw(raw: np.ndarray, nts: int) -> np.ndarray:
     return raw
 
 
-def _pinned_read_back(maps: list[torch.Tensor]) -> list[torch.Tensor] | None:
-    """The CUDA maps as contiguous host tensors in page-locked memory, or
-    None where the page-locked allocation raises (the host's locked-memory
-    limit). Each map is trimmed and widened to float32 on the card in one
-    kernel (int8 stays int8), then crosses the link once, into a buffer
-    taken per call from PyTorch's caching host allocator: the outputs stay
-    the caller's, and the blocks come back from the cache once the caller
-    drops them. One wait on the current stream, after every copy."""
-    dtypes = [torch.int8 if m.dtype == torch.int8 else torch.float32 for m in maps]
+def _decode_blocks(rows: int, cols: int, itemsize: int,
+                   slot_bytes: int) -> list[tuple[int, int, int, int]]:
+    """The read-back's blocks of a [rows, cols] map: (r0, r1, c0, c1), each
+    at most ``slot_bytes`` at ``itemsize`` bytes an element, covering the
+    map once and in order. Whole rows, as many as a slot holds; where one
+    row alone exceeds a slot, pieces of one row. Either way a block's
+    elements are contiguous in the C-ordered host output."""
+    if rows == 0 or cols == 0:
+        return []
+    per = slot_bytes // (cols * itemsize)
+    if per:
+        return [(r, min(r + per, rows), 0, cols) for r in range(0, rows, per)]
+    span = slot_bytes // itemsize
+    return [(r, r + 1, c, min(c + span, cols))
+            for r in range(rows) for c in range(0, cols, span)]
+
+
+def _page_locked(nbytes: int) -> np.ndarray | None:
+    """``nbytes`` (whole pages) of fresh anonymous host memory, page-locked
+    by ``cudaHostRegister``, as a uint8 array that unregisters it when it is
+    dropped; None where the mapping or the registration fails (the host's
+    memory or locked-memory limit). The pages are populated by the mapping
+    itself: registering them then took about half the time of registering
+    pages it first had to fault in (34 GB on an H100's host: 11.6 s against
+    20.8 s), and about as long as PyTorch's ``cudaHostAlloc``."""
+    flags = mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE
     try:
-        hosts = [torch.empty(m.shape, dtype=d, pin_memory=True)
-                 for m, d in zip(maps, dtypes)]
-    except RuntimeError:
+        block = np.frombuffer(mmap.mmap(-1, nbytes, flags=flags), np.uint8)
+    except OSError:
         return None
-    for host, m in zip(hosts, maps):
-        host.copy_(m.to(host.dtype).contiguous(), non_blocking=True)
-    torch.cuda.current_stream(maps[0].device).synchronize()
-    return hosts
+    cudart = torch.cuda.cudart()
+    ptr = block.ctypes.data
+    if cudart.cudaHostRegister(ptr, nbytes, _HOST_REGISTER_PORTABLE) != cudart.cudaError.success:
+        _clear_cuda_error()
+        return None
+    weakref.finalize(block, cudart.cudaHostUnregister, ptr).atexit = False
+    return block
+
+
+def _clear_cuda_error() -> None:
+    """Reset the CUDA runtime's last error, which a failed call that
+    PyTorch did not check leaves for the next kernel launch's check."""
+    major = (torch.version.cuda or "").split(".")[0]
+    try:
+        ctypes.CDLL(f"libcudart.so.{major}").cudaGetLastError()
+    except OSError:
+        pass
+
+
+class _Lease:
+    """One host block seen as an array of ``shape`` and ``dtype``: the base
+    of the arrays handed out. Its end returns the block to the free list."""
+
+    def __init__(self, block: np.ndarray, shape, dtype: np.dtype):
+        self.block_bytes = block.size
+        self.__array_interface__ = {"data": (block.ctypes.data, False),
+                                    "shape": tuple(shape), "typestr": dtype.str,
+                                    "version": 3}
+
+
+class _HostBlocks:
+    """The read-back's page-locked host blocks, of the maps' own sizes
+    rounded up to whole pages, kept for reuse. A map takes the smallest
+    free block that holds it, else a new one; a block goes back to the
+    free list once the last array over it is dropped. At most
+    _HOST_BLOCKS_KEPT blocks stay free, the largest: a smaller one beyond
+    them is unregistered. So a caller that keeps one result while the next
+    is made, at one size or many, needs no new block once the largest two
+    calls' worth are free."""
+
+    def __init__(self) -> None:
+        self._free: list[np.ndarray] = []
+        self._lock = threading.RLock()
+        self.registered = 0  # blocks page-locked so far
+
+    @staticmethod
+    def block_bytes(nbytes: int) -> int:
+        return -(-nbytes // mmap.PAGESIZE) * mmap.PAGESIZE
+
+    def take(self, shape, dtype: np.dtype) -> np.ndarray | None:
+        """An array of ``shape`` and ``dtype`` over a page-locked block, or
+        None where a new block cannot be page-locked."""
+        nbytes = self.block_bytes(math.prod(shape) * dtype.itemsize)
+        with self._lock:
+            fits = [k for k, b in enumerate(self._free) if b.size >= nbytes]
+            if fits:
+                block = self._free.pop(min(fits, key=lambda k: self._free[k].size))
+            else:
+                block = _page_locked(nbytes)
+                if block is None:
+                    return None
+                self.registered += 1
+        lease = _Lease(block, shape, dtype)
+        weakref.finalize(lease, self._give_back, block).atexit = False
+        return np.asarray(lease)
+
+    def _give_back(self, block: np.ndarray) -> None:
+        with self._lock:
+            self._free.append(block)
+            self._free.sort(key=lambda b: b.size)
+            del self._free[:-_HOST_BLOCKS_KEPT]  # unregistered as dropped
+
+
+class _ReadBack:
+    """The CUDA maps' way to the host, block by block of rows.
+
+    Each block's rows are trimmed and widened to float32 on the card (int8
+    codes decoded to dB, as :func:`decode_db_int8` does on the host) into
+    one device slot, then copied by DMA into the same rows of the host
+    output; both on the current stream, so a block's widening starts once
+    the copy before it is done. The slot is sized to the largest block, at
+    most _DECODE_SLOT_BYTES, and kept across calls; the host outputs are
+    page-locked blocks of :class:`_HostBlocks`. One wait on the stream,
+    after every copy. One read-back at a time."""
+
+    def __init__(self) -> None:
+        self.host = _HostBlocks()
+        self._slot: torch.Tensor | None = None
+        self._lock = threading.Lock()
+
+    def __call__(self, maps: list[torch.Tensor]) -> list[torch.Tensor] | None:
+        """The maps as float32 C-contiguous host tensors in page-locked
+        memory, or None where a page-locked block cannot be had. Counted:
+        the slot's device bytes as "recording.decode_scratch_bytes" and the
+        host blocks' page-locked bytes as "recording.decode_host_alloc_bytes"."""
+        f32 = np.dtype(np.float32)
+        with self._lock:
+            arrays = []
+            for m in maps:
+                arrays.append(self.host.take(m.shape, f32))
+                if arrays[-1] is None:
+                    return None
+            hosts = [torch.from_numpy(a) for a in arrays]
+            plan = [(m, h, b) for m, h in zip(maps, hosts)
+                    for b in _decode_blocks(*m.shape, f32.itemsize, _DECODE_SLOT_BYTES)]
+            need = max([(r1 - r0) * (c1 - c0) * f32.itemsize
+                        for _, _, (r0, r1, c0, c1) in plan], default=16)
+            if self._slot is None or self._slot.numel() < need:
+                self._slot = None  # the old slot goes before the new one comes
+                self._slot = torch.empty(-(-need // 512) * 512,  # the allocator's rounding
+                                         dtype=torch.uint8, device=maps[0].device)
+            observe.count("recording.decode_scratch_bytes", self._slot.numel())
+            observe.count("recording.decode_host_alloc_bytes",
+                          sum(a.base.block_bytes for a in arrays))
+            for m, h, (r0, r1, c0, c1) in plan:
+                with span("recording.decode_block"):
+                    block = self._slot.view(torch.float32)[: (r1 - r0) * (c1 - c0)]
+                    block = block.view(r1 - r0, c1 - c0)
+                    if m.dtype == torch.int8:
+                        decode_db_int8_into(block, m[r0:r1, c0:c1])
+                    else:
+                        block.copy_(m[r0:r1, c0:c1])
+                    h[r0:r1, c0:c1].copy_(block, non_blocking=True)
+            torch.cuda.current_stream(maps[0].device).synchronize()
+            return hosts
 
 
 def _upload_chunks(frames: int, frames_per_slot: int) -> list[tuple[int, int]]:
@@ -214,6 +363,7 @@ class RadarPipeline:
         self.filename = filename
         self._chain = make_frame_chain(cfg, self.device, impl=impl)
         self._staging = _StagingRing()
+        self._read_back = _ReadBack()
 
     def _device_inputs(self, raw: np.ndarray, calib: np.ndarray):
         """raw as flat pair rows [F, PN, 2·NTS] and calib as a pair
@@ -261,9 +411,11 @@ class RadarPipeline:
         bytes that cross counted as "recording.decode_copy_bytes" and, on a
         CUDA device, those landing in page-locked memory as
         "recording.decode_pinned_bytes" (a CUDA map crosses widened to
-        float32 by :func:`_pinned_read_back`, else in its store dtype);
+        float32 by the pipeline's :class:`_ReadBack`, int8 codes decoded,
+        block by block of rows, span "recording.decode_block" each, else in
+        its store dtype);
         then what host work remains, span "recording.decode_widen": the
-        int8 decode, the widening of a pageable copy, the NumPy views."""
+        NumPy views, or a pageable copy's int8 decode or widening."""
         tm = timer if timer is not None else NullTimer()
         a = self.cfg.algorithm
         wl = a.stft_window_length
@@ -312,7 +464,7 @@ class RadarPipeline:
             with span("recording.decode_copy"):
                 maps = [intensity[:, :n_valid], db[:, :n_valid]]
                 on_card = intensity.is_cuda
-                hosts = _pinned_read_back(maps) if on_card else None
+                hosts = self._read_back(maps) if on_card else None
                 pinned = hosts is not None
                 if not pinned:
                     hosts = [m.cpu() for m in maps]
@@ -323,7 +475,7 @@ class RadarPipeline:
                     observe.count("recording.decode_pinned_bytes",
                                   nbytes if pinned else 0)
             with span("recording.decode_widen"):
-                if a.intensity_dtype == "int8":
+                if intensity.dtype == torch.int8:  # a pageable copy's codes
                     intensity_np = decode_db_int8(intensity)
                 else:  # float32 already where pinned; else widened here
                     intensity_np = intensity.to(torch.float32).numpy()

@@ -66,6 +66,7 @@ SERVICE_SPANS = {"service.download": 1, "service.load": 1, "service.pipeline": 1
                  "service.json": 4, "service.png": 1, "service.store": 5}
 RECORDING_CELLS = ["production-65k.recording", "fidelity-1k.recording"]
 SERVICE_CELL = "service-1k.process"
+DAY_CELL = "production-576k.recording"
 COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading)
     **{m: ([(name, 0.25, None), (name, 0.75, None)], 1e3 * 1.0 / 4)
        for m, name in METRICS.items()},
@@ -81,6 +82,18 @@ COLLECTOR_READERS = {  # reader -> (records added, name by name, and its reading
                                      ("recording.decode_copy_bytes", 0.0, 10**9),
                                      ("recording.decode_pinned_bytes", 0.0, 2 * 10**9),
                                      ("recording.decode_pinned_bytes", 0.0, 10**9)], 75.0),
+    # 100 × the host blocks' page-locked bytes over the bytes copied; the
+    # copied bytes alone (a program without the block counter) read None
+    "recording.decode_host_alloc_pct": ([("recording.decode_copy_bytes", 0.0, 3 * 10**9),
+                                         ("recording.decode_copy_bytes", 0.0, 10**9),
+                                         ("recording.decode_host_alloc_bytes", 0.0,
+                                          3 * 10**9),
+                                         ("recording.decode_host_alloc_bytes", 0.0,
+                                          10**9 + 2 * 4096)], 100.0 + 2.048e-4),
+    # the read-back's device slots per recording in MB (4 items)
+    "recording.decode_scratch_mb": ([("recording.decode_scratch_bytes", 0.0, 2 * 10**8),
+                                     ("recording.decode_scratch_bytes", 0.0, 2 * 10**8)],
+                                    100.0),
     # the raw's bytes over the upload span's seconds; the span alone (a
     # program without the counter) reads None
     "recording.upload_gbps": ([("recording.upload", 0.25, None),
@@ -510,7 +523,8 @@ def test_every_span_metric_is_declared():
         m = declared[metric]
         assert (m["source"], m["unit"], m["better"]) == ("program_span", "ms", "lower")
         if metric.startswith("recording."):
-            want = RECORDING_CELLS + ([SERVICE_CELL] if metric in also_service else [])
+            want = (RECORDING_CELLS + ([SERVICE_CELL] if metric in also_service else [])
+                    + [DAY_CELL])
         elif metric.startswith("service."):
             want = [SERVICE_CELL]
             assert (m["layer"], m["moves"]) == ("service", "recording_frames_per_s")
@@ -525,7 +539,8 @@ def test_counter_and_export_metrics_are_declared():
     assert declared["recording.decode_copy_gbps"] == {
         "name": "recording.decode_copy_gbps", "unit": "GB/s", "better": "higher",
         "source": "program_span", "layer": "host decode",
-        "moves": "recording_frames_per_s", "workloads": RECORDING_CELLS + [SERVICE_CELL]}
+        "moves": "recording_frames_per_s",
+        "workloads": RECORDING_CELLS + [SERVICE_CELL, DAY_CELL]}
     assert declared["service.json_gbps"] == {
         "name": "service.json_gbps", "unit": "GB/s", "better": "higher",
         "source": "program_span", "layer": "service",
@@ -533,8 +548,13 @@ def test_counter_and_export_metrics_are_declared():
     assert declared["recording.decode_pinned_pct"] == {
         "name": "recording.decode_pinned_pct", "unit": "%", "better": "higher",
         "source": "program_span", "layer": "host decode",
-        "moves": "recording_frames_per_s",
-        "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
+        "moves": "recording_frames_per_s", "workloads": RECORDING_CELLS + [DAY_CELL]}
+    for name, unit in (("recording.decode_scratch_mb", "MB"),
+                       ("recording.decode_host_alloc_pct", "%")):
+        assert declared[name] == {
+            "name": name, "unit": unit, "better": "lower", "source": "program_counter",
+            "layer": "host decode", "moves": "recording_frames_per_s",
+            "workloads": [DAY_CELL] + RECORDING_CELLS}
     assert declared["kernels_roofline_pct.export_tiled"] == {
         "name": "kernels_roofline_pct.export_tiled", "unit": "%", "better": "higher",
         "source": "device_trace", "layer": "kernels", "moves": "recording_frames_per_s",
@@ -549,8 +569,7 @@ def test_upload_metrics_are_declared():
         assert declared[name] == {
             "name": name, "unit": unit, "better": "higher",
             "source": "program_span", "layer": "recording entry",
-            "moves": "recording_frames_per_s",
-            "workloads": ["production-65k.recording", "fidelity-1k.recording"]}
+            "moves": "recording_frames_per_s", "workloads": RECORDING_CELLS + [DAY_CELL]}
 
 
 def _kernel(name, dur_us, cat="kernel"):
